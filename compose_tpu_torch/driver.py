@@ -1,0 +1,153 @@
+"""End-to-end transport runs (compose_tpu.driver), for method pisl with the
+CAAS filter and CAAS limiter: mesh + wind + initial conditions, the time
+loop with the reference's per-step checks on tracer 0, and the final error
+norms of the reference's `print_error`.
+"""
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from . import constants
+from .config import F64, resolve_device
+from .mesh import cubed_sphere
+from .ops import sphere
+from .ops.reduce import bfb_sum
+from .transport import gallery
+from .transport.isl import IslConfig, IslTransport
+
+
+@dataclasses.dataclass
+class RunOutput:
+    """Final metrics, named as the reference's Output struct."""
+    l2_err: float
+    max_err: float
+    l1_err: float
+    mass_s: float
+    mass_e: float
+    mass_gll_s: float
+    mass_gll_e: float
+    min_s: float
+    max_s: float
+    min_e: float
+    max_e: float
+    et_timestep: float
+    max_step_mass_err: float
+    max_step_bounds_err: float
+
+    @property
+    def cv(self):
+        return _reldif(self.mass_s, self.mass_e)
+
+    @property
+    def cv_gll(self):
+        return _reldif(self.mass_gll_s, self.mass_gll_e)
+
+    def one_liner(self, **kv):
+        parts = ["<OL>"] + [f"{k} {v}" for k, v in kv.items()]
+        parts += [
+            f"re l2 {self.l2_err:9.3e} max {self.max_err:9.3e}",
+            f"cv re {self.cv:9.3e}", f"cvgll re {self.cv_gll:9.3e}",
+            f"mo min {self.min_s:9.3e} {self.min_e:9.3e} "
+            f"{self.min_e - self.min_s:9.3e} "
+            f"max {self.max_s:9.3e} {self.max_e:9.3e} "
+            f"{self.max_e - self.max_s:9.3e}",
+            f"et ts {self.et_timestep:9.3e}",
+        ]
+        return " ".join(parts)
+
+
+def _reldif(a, b):
+    return abs(b - a) / max(1.0, abs(a))
+
+
+def init_tracers(mesh, ic_names):
+    """Evaluate the ICs at the CGLL nodes and inject to the DGLL slots:
+    (nt, ncell, np2) f64 on the mesh's device."""
+    lat, lon = sphere.xyz2ll(mesh.cgll_xyz)
+    d2c = mesh.dgll2cgll.reshape(-1)
+    return torch.stack([
+        gallery.initial_condition(n, lat, lon)[d2c].reshape(mesh.ncell,
+                                                           mesh.np2)
+        for n in ic_names])
+
+
+def summarize(mesh, f0, rho0, f, rho, et_timestep=0.0,
+              max_step_mass_err=0.0, max_step_bounds_err=0.0):
+    """The reference's final error norms of a tracer (print_error): f0, f
+    its initial and final mixing ratios, rho0, rho the densities."""
+    fs = f0.reshape(-1).cpu().numpy()
+    ds = rho0.reshape(-1).cpu().numpy()
+    fe = f.reshape(-1).cpu().numpy()
+    de = rho.reshape(-1).cpu().numpy()
+    w = mesh.dgbfi_sphere.reshape(-1).cpu().numpy()
+    wg = mesh.dgbfi_gll.reshape(-1).cpu().numpy()
+    e = fe - fs
+    return RunOutput(
+        l2_err=float(np.sqrt(np.sum(w * e * e) / np.sum(w * fs * fs))),
+        max_err=float(np.max(np.abs(e)) / np.max(np.abs(fs))),
+        l1_err=float(np.sum(w * np.abs(e)) / np.sum(w * np.abs(fs))),
+        mass_s=float(np.sum(w * fs * ds)), mass_e=float(np.sum(w * fe * de)),
+        mass_gll_s=float(np.sum(wg * fs * ds)),
+        mass_gll_e=float(np.sum(wg * fe * de)),
+        min_s=float(fs.min()), max_s=float(fs.max()),
+        min_e=float(fe.min()), max_e=float(fe.max()),
+        et_timestep=et_timestep,
+        max_step_mass_err=max_step_mass_err,
+        max_step_bounds_err=max_step_bounds_err,
+    )
+
+
+def run(ne=10, np_=4, nsteps=12, T_days=12.0, ics=("gaussianhills",),
+        ode="divergent", method="pisl", filter_="caas", limiter="caas",
+        basis="GllNodal", nsub=8, dmc="none", geom_dtype="f64",
+        interp_dtype="f64", verbose=True, *, device):
+    """One slmmir-style pisl run on `device`; returns RunOutput."""
+    if method != "pisl":
+        raise NotImplementedError(f"method '{method}' is not ported")
+    dev = resolve_device(device)
+    mesh = cubed_sphere.build(ne, np_, basis, device=dev)
+    wind = gallery.create_wind(ode)
+    cfg = IslConfig(ne=ne, np_=np_, basis=basis, filter=filter_,
+                    limiter=limiter, rho_isl=True, nsub=nsub,
+                    dmc="f" if dmc == "none" else dmc,
+                    geom_dtype=geom_dtype, interp_dtype=interp_dtype)
+    model = IslTransport(mesh, wind, cfg)
+
+    rho = torch.ones((mesh.ncell, mesh.np2), dtype=F64, device=dev)
+    q = init_tracers(mesh, ics)
+    q0, rho0 = q, rho
+    T = constants.day2sec(T_days)
+    dt = T / nsteps
+    F_gll = mesh.dgbfi_gll.reshape(-1)
+
+    def tracer0_stats(q, rho):
+        # One host read per step: mass (bfb tree), min, max of tracer 0.
+        return torch.stack([bfb_sum(F_gll * (q[0] * rho).reshape(-1)),
+                            torch.amin(q[0]), torch.amax(q[0])]).tolist()
+
+    mass_prev, q_min0, q_max0 = tracer0_stats(q, rho)
+    max_step_mass_err = 0.0
+    max_step_bounds_err = 0.0
+    t_start = time.time()
+    for step in range(nsteps):
+        ts = dt * step
+        tf = T if step == nsteps - 1 else ts + dt
+        rho, q = model.step(rho, q, ts, tf)
+        mass, qmin, qmax = tracer0_stats(q, rho)
+        max_step_mass_err = max(max_step_mass_err,
+                                abs(mass - mass_prev) / max(1.0, abs(mass)))
+        mass_prev = mass
+        max_step_bounds_err = max(max_step_bounds_err,
+                                  max(0.0, q_min0 - qmin),
+                                  max(0.0, qmax - q_max0))
+    et = (time.time() - t_start) / nsteps
+    out = summarize(mesh, q0[0], rho0, q[0], rho, et, max_step_mass_err,
+                    max_step_bounds_err)
+    if verbose:
+        print(out.one_liner(method=method, ode=ode, ic=ics[0], np=np_, ne=ne,
+                            nsteps=nsteps, mono=filter_, lim=limiter))
+    return out
+

@@ -1,0 +1,108 @@
+"""The tracer-CDR kernels of the ISL step: K1 `glbl_caas` (global CAAS mass
+redistribution over cells) and K2 `limit_caas` (cell-local CAAS limiter).
+
+Same module name as the TPU kernels' home (compose_tpu/transport/
+cdr_fused.py). The TPU kernels worked on double-float (hi, lo) f32 pairs
+because the TPU has no f64; the H100 has native f64, so both kernels and
+their plain versions compute in f64 and the pair glue is gone.
+
+Each wrapper takes the plain PyTorch version for a CPU tensor and launches
+the CUDA kernel (compose_tpu_torch/csrc) for a CUDA tensor; it never falls
+back. `glbl_caas.launches` / `limit_caas.launches` count kernel launches.
+"""
+
+import torch
+
+from .. import _native
+from ..config import F64
+from ..ops import local_qp
+from ..ops.reduce import bfb_sum
+
+
+# ---------------------------------------------------------------------------
+# K1: global CAAS (compose_tpu's spf.glbl_caas_gsum with gsum = bfb_sum).
+
+def glbl_caas_plain(Q_min, Q_mass, Q_max, extra_mass):
+    """Closed-form global CAAS over the last (cell) axis. Q_*: (..., ncell);
+    extra_mass: (...,). Returns masses summing to sum(Q_mass) + extra_mass,
+    inside [Q_min, Q_max] when feasible."""
+    delta = torch.where(Q_mass < Q_min, Q_min - Q_mass,
+                        torch.where(Q_mass > Q_max, Q_max - Q_mass, 0.0))
+    m = extra_mass - bfb_sum(delta)
+    msd = Q_mass + delta
+    v_up = torch.where(Q_mass >= Q_max, 0.0, Q_max - msd)
+    v_dn = torch.where(Q_mass <= Q_min, 0.0, msd - Q_min)
+    v = torch.where((m > 0)[..., None], v_up, v_dn)
+    vsum = bfb_sum(v)
+    nz = vsum != 0
+    fac = torch.where(nz, m / torch.where(nz, vsum, 1.0), 0.0)
+    return msd + fac[..., None] * v
+
+
+def glbl_caas(Q_min, Q_mass, Q_max, extra_mass):
+    """K1. Q_*: (nt, ncell) or (ncell,) f64; extra_mass: (nt,) or scalar.
+    CPU tensors: the plain version. CUDA tensors: the kernel
+    (csrc/glbl_caas.cu), bitwise equal to the plain version."""
+    if not Q_mass.is_cuda:
+        return glbl_caas_plain(Q_min, Q_mass, Q_max, extra_mass)
+    squeeze = Q_mass.dim() == 1
+    lead = Q_mass.shape[:-1]
+    ncell = Q_mass.shape[-1]
+    qmin, qmass, qmax = (x.reshape(-1, ncell).contiguous()
+                         for x in (Q_min, Q_mass, Q_max))
+    nt = qmass.shape[0]
+    extra = torch.as_tensor(extra_mass, dtype=F64, device=Q_mass.device)
+    extra = extra.expand(lead).reshape(nt).contiguous()
+    out = torch.empty_like(qmass)
+    ptrs = [_native.require(x, n, F64, (nt, ncell)) for x, n in
+            ((qmin, "Q_min"), (qmass, "Q_mass"), (qmax, "Q_max"),
+             (out, "out"))]
+    ex = _native.require(extra, "extra_mass", F64, (nt,))
+    _native.check(_native.lib().glbl_caas_f64(
+        ptrs[0], ptrs[1], ptrs[2], ex, ptrs[3], nt, ncell,
+        _native.stream_of(qmass)), "glbl_caas")
+    glbl_caas.launches += 1
+    return out[0] if squeeze else out.reshape(lead + (ncell,))
+
+
+glbl_caas.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: cell-local CAAS limiter (limit_tracer(limiter="caas", precomp, return_q)
+# plus the zero-density select of the ISL CDR).
+
+def limit_caas_plain(rhom, rho, Q, q_min, q_max, b):
+    """rhom = F*rho, rho: (ncell, np2); Q, q_min, q_max: (nt, ncell, np2);
+    b: (nt, ncell) target cell masses. Returns the limited mixing ratios
+    (nt, ncell, np2), inside [q_min, q_max]; rho == 0 nodes take q_min.
+    Cell sums are adjacent-pair folds, as in the kernel. Zero-density
+    nodes get a vanishing but nonzero weight (the solver divides by it)."""
+    a = torch.clamp_min(rhom, 1e-300)
+    y = Q * (1.0 / torch.where(rho == 0, 1.0, rho))
+    x = local_qp.caas(a, b, q_min, q_max, y)
+    return torch.where(rho == 0, q_min, x)
+
+
+def limit_caas(rhom, rho, Q, q_min, q_max, b):
+    """K2. Shapes as limit_caas_plain; np2 must be 16 for the kernel. CPU
+    tensors: the plain version. CUDA tensors: the kernel
+    (csrc/limit_caas.cu), bitwise equal to the plain version."""
+    if not Q.is_cuda:
+        return limit_caas_plain(rhom, rho, Q, q_min, q_max, b)
+    nt, ncell, np2 = Q.shape
+    if np2 != 16:
+        raise NotImplementedError(f"limit_caas kernel: np2={np2} (needs 16)")
+    out = torch.empty_like(Q)
+    args = [_native.require(x, n, F64, s) for x, n, s in (
+        (rhom, "rhom", (ncell, np2)), (rho, "rho", (ncell, np2)),
+        (Q, "Q", Q.shape), (q_min, "q_min", Q.shape),
+        (q_max, "q_max", Q.shape), (b, "b", (nt, ncell)),
+        (out, "out", Q.shape))]
+    _native.check(_native.lib().limit_caas_f64(
+        *args, nt, ncell, _native.stream_of(Q)), "limit_caas")
+    limit_caas.launches += 1
+    return out
+
+
+limit_caas.launches = 0

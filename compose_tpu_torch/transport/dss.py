@@ -1,0 +1,80 @@
+"""Direct stiffness summation, gather formulation (compose_tpu.transport.dss)
+and K3 `dss_q`, the mixing-ratio DSS merge.
+
+Fields carry the DGLL slot axis last, (rows, ndgll). A continuous node's
+coincident slots (<= 4) are the columns of mesh.c2d_idx, valid where
+mesh.c2d_mask. The merge averages them with weights w, falls back to the
+static weights F where the merged w is zero, clips to the slots' range, and
+writes the result back to every slot. Tracers use w = F * rho
+(`dss_q_gather_t`); a density field uses w = F (`dss_gather_t`).
+
+The wrapper takes the plain PyTorch version for a CPU tensor and launches
+the CUDA kernel (csrc/dss_q.cu) for a CUDA tensor; `dss_q.launches` counts
+kernel launches. Sums run in the fixed order ((s0 + s1) + s2) + s3 in both.
+"""
+
+import torch
+
+from .. import _native
+from ..config import F64
+
+
+def _sum4(x):
+    return ((x[..., 0] + x[..., 1]) + x[..., 2]) + x[..., 3]
+
+
+def dss_q_plain(w, F, q, c2d_idx, c2d_mask, d2c_map):
+    """w, F: (ndgll,); q: (nt, ndgll); c2d_idx/c2d_mask: (cnn, 4);
+    d2c_map: (ndgll,) slot -> node. Returns the merged (nt, ndgll)."""
+    vals = torch.where(c2d_mask, q[:, c2d_idx], 0.0)        # (nt, cnn, 4)
+    ws = torch.where(c2d_mask, w[c2d_idx], 0.0)             # (cnn, 4)
+    fs = torch.where(c2d_mask, F[c2d_idx], 0.0)
+    den = _sum4(ws)
+    ok = den > 0
+    cg = torch.where(ok, _sum4(ws * vals) / torch.where(ok, den, 1.0),
+                     _sum4(fs * vals) / _sum4(fs))
+    inf = float("inf")
+    mn = torch.amin(torch.where(c2d_mask, vals, inf), dim=-1)
+    mx = torch.amax(torch.where(c2d_mask, vals, -inf), dim=-1)
+    cg = torch.minimum(torch.maximum(cg, mn), mx)
+    return cg[:, d2c_map]
+
+
+def dss_q(w, F, q, c2d_idx, c2d_mask, d2c_map, c2d_idx32=None):
+    """K3. Arguments as dss_q_plain; the kernel takes the inverse map as
+    int32 (`c2d_idx32`, derived from c2d_idx if not given). CPU tensors:
+    the plain version. CUDA tensors: the kernel, one thread per (tracer,
+    node), writing every valid slot (the d2c injection is implicit)."""
+    if not q.is_cuda:
+        return dss_q_plain(w, F, q, c2d_idx, c2d_mask, d2c_map)
+    nt, ndgll = q.shape
+    cnn = c2d_idx.shape[0]
+    if c2d_idx32 is None:
+        c2d_idx32 = c2d_idx.to(torch.int32)
+    out = torch.empty_like(q)
+    args = [_native.require(w, "w", F64, (ndgll,)),
+            _native.require(F, "F", F64, (ndgll,)),
+            _native.require(q, "q", F64, (nt, ndgll)),
+            _native.require(c2d_idx32, "c2d_idx", torch.int32, (cnn, 4)),
+            _native.require(c2d_mask, "c2d_mask", torch.bool, (cnn, 4)),
+            _native.require(out, "out", F64, (nt, ndgll))]
+    _native.check(_native.lib().dss_q_f64(
+        *args, nt, cnn, ndgll, _native.stream_of(q)), "dss_q")
+    dss_q.launches += 1
+    return out
+
+
+dss_q.launches = 0
+
+
+def dss_q_gather_t(rho_dg, q_dg, d2c_map, c2d_idx, c2d_mask, dgbfi,
+                   c2d_idx32=None):
+    """Mixing-ratio DSS of (nt, ndgll) tracers with weights dgbfi * rho."""
+    return dss_q(dgbfi * rho_dg, dgbfi, q_dg, c2d_idx, c2d_mask, d2c_map,
+                 c2d_idx32)
+
+
+def dss_gather_t(dg, d2c_map, c2d_idx, c2d_mask, dgbfi, c2d_idx32=None):
+    """DSS of (nt, ndgll) fields with the static weights dgbfi, clipped to
+    the coincident range."""
+    return dss_q(dgbfi, dgbfi, dg, c2d_idx, c2d_mask, d2c_map, c2d_idx32)
