@@ -4,16 +4,25 @@
 
 Phases (any failure raises, so the exit code is nonzero):
   0. device: CUDA is required; print the card's name and power limit;
-  1. build the CUDA kernels (nvcc, sm_90a) from compose_tpu_torch/csrc;
-  2. each kernel against its plain PyTorch version on the card, at the
-     flagship shapes, with seeded inputs that include infeasible cells and
-     zero-density nodes: bitwise equality, exact bounds, median times;
-  3. the flagship ISL step (ne30, np4, 40 tracers, pisl CAAS/CAAS, f32
-     geometry and interpolation, nsub=8, divergent wind) for one 12-day
-     period of 120 steps through IslTransport.step, with the Observer
-     invariants and the per-step launch counts asserted; plus a small f64
-     run on the card held against the same run on the CPU;
-  4. the golden battery row isl_caas_flagship_f32 through driver.run.
+  1. build the CUDA kernels (nvcc, sm_90a, one process per source) from
+     compose_tpu_torch/csrc;
+  2. each kernel, f64 (K1-K3) and f32 (K4 and K1/K2 at f32), against its
+     plain PyTorch version on the card, at the flagship shapes, with seeded
+     inputs that include infeasible cells and zero-density nodes: bitwise
+     equality, exact bounds, median times;
+  3. small references (ne4, 4 tracers, 3 steps: caas/caas and qlt/mn2 in
+     f64, qlt/mn2 in f32), the card against the CPU; then the paths at
+     ne30, np4, 40 tracers, each driven through IslTransport.step with the
+     launch counts set to 0 just before it and read just after, the
+     Observer invariants asserted:
+       - the flagship step (pisl CAAS/CAAS, f32 geometry and interpolation,
+         f64 CDR) for one 12-day period of 120 steps: K1, K2, K3;
+       - the single-precision route of the default CDR (pisl QLT/mn2,
+         x64 off) for 120 steps: K4;
+       - CAAS/CAAS with x64 off for 12 steps: K1, K2 and K4 in f32;
+       - QLT/mn2 in f64 for 12 steps: K3;
+  4. golden battery rows through driver.run: isl_caas_flagship_f32,
+     pisl qlt/mn2 ne10 and pisl caas/mn2 ne10.
 The last two lines are the kernels' JSON summary and the device JSON.
 """
 
@@ -26,9 +35,24 @@ import time
 import numpy as np
 import torch
 
+F64, F32 = torch.float64, torch.float32
 K1_SRC = "compose_tpu_torch/csrc/glbl_caas.cu"
 K2_SRC = "compose_tpu_torch/csrc/limit_caas.cu"
-K3_SRC = "compose_tpu_torch/csrc/dss_q.cu"
+K34_SRC = "compose_tpu_torch/csrc/dss_q.cu"
+# C entry -> (source, the TPU kernel it replaces).
+KERNELS = {
+    "glbl_caas_f64": (K1_SRC, "compose_tpu/transport/cdr_fused.py:57"),
+    "limit_caas_f64": (K2_SRC, "compose_tpu/transport/cdr_fused.py:258"),
+    "dss_q_f64": (K34_SRC, "compose_tpu/transport/dss_face.py:115"),
+    "dss_q_f32": (K34_SRC, "compose_tpu/transport/dss_face.py:73"),
+    "glbl_caas_f32": (K1_SRC, "compose_tpu/transport/cdr_fused.py:57"),
+    "limit_caas_f32": (K2_SRC, "compose_tpu/transport/cdr_fused.py:258"),
+}
+# The H100 SXM's published peaks (NVIDIA data sheet): HBM3 3.35 TB/s;
+# 67 TFLOP/s f32 and 34 TFLOP/s f64 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {F64: 34e12, F32: 67e12}
+ICS4 = ["gaussianhills", "slottedcylinders", "cosinebells", "xyztrig"]
 
 
 def log(*a):
@@ -57,14 +81,40 @@ def same(a, b, what):
         raise AssertionError(f"{what}: kernel != plain (max |diff| {err})")
 
 
-def phase_kernels(dev, stats, ne=30):
+def bound(tensors, out, flops, dtype):
+    """The least time (ms) the card could take: each input read once and
+    the output written once at the HBM rate, or `flops` at the peak rate
+    of `dtype`, whichever is larger."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors) \
+        + out.numel() * out.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes)
+
+
+def phase_kernels(dev, stats, dtype, ne=30):
+    """K1, K2 and the DSS merge (K3 in f64, K4 in f32) of `dtype` against
+    their plain versions at the flagship shapes."""
     from compose_tpu_torch.mesh import cubed_sphere
     from compose_tpu_torch.transport import cdr_fused, dss
 
+    sfx = {F64: "f64", F32: "f32"}[dtype]
     rng = np.random.default_rng(20261016)
-    f64 = dict(dtype=torch.float64, device=dev)
-    mesh = cubed_sphere.build(ne, 4, device=dev)
+    kw = dict(dtype=dtype, device=dev)
+    mesh = cubed_sphere.build(ne, 4, device=dev, dtype=dtype)
     ncell, np2, nt = mesh.ncell, mesh.np2, 40
+    eps = torch.finfo(dtype).eps
+
+    def record(name, err, fn, plain, args, out, flops, shape):
+        stats[name] = dict(max_abs_err=err, ms=cuda_ms(fn),
+                           plain_ms=cuda_ms(plain), library_ms=None,
+                           **bound(args, out, flops, dtype))
+        st = stats[name]
+        log(f"{name} {shape}: bitwise == plain, bounds held; "
+            f"{st['ms']:.4f} ms vs plain {st['plain_ms']:.4f} ms; bound "
+            f"{st['bound_ms']:.4f} ms ({st['bytes'] / 1e6:.1f} MB)")
 
     # K1: per-cell records; infeasible cells (mass outside [min, max]).
     def k1_inputs(rows):
@@ -73,134 +123,135 @@ def phase_kernels(dev, stats, ne=30):
         ms = rng.uniform(-0.5, 2.5, (rows, ncell))   # ~1/3 out of bounds
         # Feasible targets: the total lands between sum(min) and sum(max).
         tgt = mn.sum(1) + rng.uniform(0.2, 0.8, rows) * (mx - mn).sum(1)
-        return [torch.tensor(x, **f64) for x in (mn, ms, mx, tgt - ms.sum(1))]
+        return [torch.tensor(x, **kw) for x in (mn, ms, mx, tgt - ms.sum(1))]
 
-    k1_err = 0.0
+    err = 0.0
     for rows in (1, nt):
-        mn, ms, mx, ex = k1_inputs(rows)
-        out = cdr_fused.glbl_caas(mn, ms, mx, ex)
-        ref = cdr_fused.glbl_caas_plain(mn, ms, mx, ex)
+        a1 = k1_inputs(rows)
+        out = cdr_fused.glbl_caas(*a1)
+        ref = cdr_fused.glbl_caas_plain(*a1)
         torch.cuda.synchronize()
-        same(out, ref, f"K1 glbl_caas ({rows}, {ncell})")
+        same(out, ref, f"glbl_caas_{sfx} ({rows}, {ncell})")
         # (m / sum v) * v rounds, so the feasible bounds hold to roundoff
-        # (an ulp or two), not exactly: held to 1e2 eps of the bound.
-        tol = 1e2 * torch.finfo(torch.float64).eps
-        if not (bool((out >= mn - tol * mn.abs()).all())
-                and bool((out <= mx + tol * mx.abs()).all())):
+        # (an ulp or two), not exactly: held to 1e2 eps of the bound. A
+        # clipped cell's mass + (bound - mass) also rounds at the scale of
+        # the mass, which f32 resolves above 1e2 eps of a small bound: the
+        # f32 bar scales with the larger of the two.
+        mn, ms, mx = a1[0], a1[1], a1[2]
+        scale_lo, scale_hi = mn.abs(), mx.abs()
+        if dtype == F32:
+            scale_lo = torch.maximum(scale_lo, ms.abs())
+            scale_hi = torch.maximum(scale_hi, ms.abs())
+        if not (bool((out >= mn - 1e2 * eps * scale_lo).all())
+                and bool((out <= mx + 1e2 * eps * scale_hi).all())):
             raise AssertionError("K1: feasible problem left its bounds")
-        k1_err = max(k1_err, float((out - ref).abs().max()))
-    stats["glbl_caas"] = dict(
-        max_abs_err=k1_err,
-        ms=cuda_ms(lambda: cdr_fused.glbl_caas(mn, ms, mx, ex)),
-        plain_ms=cuda_ms(lambda: cdr_fused.glbl_caas_plain(mn, ms, mx, ex)))
-    log(f"K1 glbl_caas (1|{nt}, {ncell}): bitwise == plain, bounds held "
-        f"to 1e2 eps; "
-        f"{stats['glbl_caas']['ms']:.4f} ms vs plain "
-        f"{stats['glbl_caas']['plain_ms']:.4f} ms")
+        err = max(err, float((out - ref).abs().max()))
+    record(f"glbl_caas_{sfx}", err, lambda: cdr_fused.glbl_caas(*a1),
+           lambda: cdr_fused.glbl_caas_plain(*a1), a1, out,
+           12 * nt * ncell, f"(1|{nt}, {ncell})")
 
     # K2: zero-density nodes and infeasible cells (targets outside the
     # cell's [sum a qmin, sum a qmax]) included.
     rho = rng.uniform(0.5, 1.5, (ncell, np2))
     rho[rng.random((ncell, np2)) < 0.02] = 0.0
-    F = mesh.dgbfi_gll.cpu().numpy()
+    F = mesh.dgbfi_gll.to(F64).cpu().numpy()
     qmin = rng.uniform(0.0, 0.5, (nt, ncell, np2))
     qmax = qmin + rng.uniform(0.0, 0.5, (nt, ncell, np2))
     Q = rng.uniform(-0.2, 1.2, (nt, ncell, np2)) * rho
     rhom = F * rho
     b = (rhom * rng.uniform(-0.1, 1.1, (nt, ncell, np2))).sum(-1)
-    args = [torch.tensor(x, **f64) for x in (rhom, rho, Q, qmin, qmax, b)]
-    out = cdr_fused.limit_caas(*args)
-    ref = cdr_fused.limit_caas_plain(*args)
+    a2 = [torch.tensor(x, **kw) for x in (rhom, rho, Q, qmin, qmax, b)]
+    out = cdr_fused.limit_caas(*a2)
+    ref = cdr_fused.limit_caas_plain(*a2)
     torch.cuda.synchronize()
-    same(out, ref, f"K2 limit_caas ({nt}, {ncell}x{np2})")
-    if not (bool((out >= args[3]).all()) and bool((out <= args[4]).all())):
+    same(out, ref, f"limit_caas_{sfx} ({nt}, {ncell}x{np2})")
+    if not (bool((out >= a2[3]).all()) and bool((out <= a2[4]).all())):
         raise AssertionError("K2: output outside [qmin, qmax]")
-    stats["limit_caas"] = dict(
-        max_abs_err=float((out - ref).abs().max()),
-        ms=cuda_ms(lambda: cdr_fused.limit_caas(*args)),
-        plain_ms=cuda_ms(lambda: cdr_fused.limit_caas_plain(*args)))
-    log(f"K2 limit_caas ({nt}, {ncell}x{np2}): bitwise == plain, bounds "
-        f"held; {stats['limit_caas']['ms']:.4f} ms vs plain "
-        f"{stats['limit_caas']['plain_ms']:.4f} ms")
+    record(f"limit_caas_{sfx}", float((out - ref).abs().max()),
+           lambda: cdr_fused.limit_caas(*a2),
+           lambda: cdr_fused.limit_caas_plain(*a2), a2, out,
+           30 * nt * ncell * np2, f"({nt}, {ncell}x{np2})")
 
-    # K3: zero-density nodes exercise the F-weighted fallback.
+    # K3 / K4: zero-density nodes exercise the F-weighted fallback.
     ndgll = ncell * np2
     Ff = mesh.dgbfi_gll.reshape(-1).contiguous()
-    rho_n = torch.tensor(rng.uniform(0.5, 1.5, ndgll), **f64)
+    rho_n = torch.tensor(rng.uniform(0.5, 1.5, ndgll), **kw)
     rho_n[torch.tensor(rng.random(ndgll) < 0.05, device=dev)] = 0.0
     w = Ff * rho_n
     idx32 = mesh.c2d_idx.to(torch.int32).contiguous()
     d2c = mesh.dgll2cgll.reshape(-1)
-    k3_err = 0.0
+    err = 0.0
     for rows in (1, nt):
-        q = torch.tensor(rng.uniform(0.0, 1.0, (rows, ndgll)), **f64)
+        q = torch.tensor(rng.uniform(0.0, 1.0, (rows, ndgll)), **kw)
         kargs = (w, Ff, q, mesh.c2d_idx, mesh.c2d_mask, d2c)
         out = dss.dss_q(*kargs, c2d_idx32=idx32)
         ref = dss.dss_q_plain(*kargs)
         torch.cuda.synchronize()
-        same(out, ref, f"K3 dss_q ({rows}, {ndgll})")
+        same(out, ref, f"dss_q_{sfx} ({rows}, {ndgll})")
         vals = q[:, mesh.c2d_idx]
-        inf = torch.tensor(float("inf"), **f64)
+        inf = torch.tensor(float("inf"), **kw)
         lo = torch.where(mesh.c2d_mask, vals, inf).amin(-1)[:, d2c]
         hi = torch.where(mesh.c2d_mask, vals, -inf).amax(-1)[:, d2c]
         if not (bool((out >= lo).all()) and bool((out <= hi).all())):
-            raise AssertionError("K3: output outside the slot range")
-        k3_err = max(k3_err, float((out - ref).abs().max()))
-    stats["dss_q"] = dict(
-        max_abs_err=k3_err,
-        ms=cuda_ms(lambda: dss.dss_q(*kargs, c2d_idx32=idx32)),
-        plain_ms=cuda_ms(lambda: dss.dss_q_plain(*kargs)))
-    log(f"K3 dss_q (1|{nt}, {ndgll}): bitwise == plain, bounds held; "
-        f"{stats['dss_q']['ms']:.4f} ms vs plain "
-        f"{stats['dss_q']['plain_ms']:.4f} ms")
+            raise AssertionError("DSS merge: output outside the slot range")
+        err = max(err, float((out - ref).abs().max()))
+    record(f"dss_q_{sfx}", err,
+           lambda: dss.dss_q(*kargs, c2d_idx32=idx32),
+           lambda: dss.dss_q_plain(*kargs),
+           (w, Ff, q, idx32, mesh.c2d_mask), out, 17 * nt * mesh.cnn,
+           f"(1|{nt}, {ndgll})")
 
 
-def phase_small_reference(dev):
-    """ne4, 4 tracers, 3 f64 steps: the card (kernels) against the CPU
-    (plain versions)."""
+def _model(dev, ne, nt, dtype, **cfg):
     from compose_tpu_torch import driver
     from compose_tpu_torch.mesh import cubed_sphere
     from compose_tpu_torch.transport import gallery
     from compose_tpu_torch.transport.isl import IslConfig, IslTransport
 
-    ics = ["gaussianhills", "slottedcylinders", "cosinebells", "xyztrig"]
-    res = {}
-    for d in ("cpu", dev):
-        mesh = cubed_sphere.build(4, 4, device=d)
-        model = IslTransport(mesh, gallery.create_wind("divergent"),
-                             IslConfig(ne=4, nsub=2))
-        rho = torch.ones((mesh.ncell, mesh.np2), dtype=torch.float64,
-                         device=d)
-        q = driver.init_tracers(mesh, ics)
-        dt = 86400.0 * 12 / 3
-        for s in range(3):
-            rho, q = model.step(rho, q, s * dt, (s + 1) * dt)
-        res[str(d)] = (rho.cpu(), q.cpu())
-    (rc, qc), (rg, qg) = res["cpu"], res[str(dev)]
-    err = max(float((rc - rg).abs().max()), float((qc - qg).abs().max()))
-    log(f"small reference (ne4, 4 tracers, 3 f64 steps): max |card - cpu| "
-        f"= {err:.3e} (tolerance 1e-12)")
-    if not err <= 1e-12:
-        raise AssertionError(f"card run disagrees with the CPU run: {err}")
-
-
-def phase_main_path(dev, ne=30, nsteps=120):
-    from compose_tpu_torch import driver
-    from compose_tpu_torch.diagnostics import Observer
-    from compose_tpu_torch.mesh import cubed_sphere
-    from compose_tpu_torch.transport import cdr_fused, dss, gallery
-    from compose_tpu_torch.transport.isl import IslConfig, IslTransport
-
-    np_, nt = 4, 40
-    mesh = cubed_sphere.build(ne, np_, device=dev)
-    cfg = IslConfig(ne=ne, np_=np_, filter="caas", limiter="caas",
-                    rho_isl=True, nsub=8, geom_dtype="f32",
-                    interp_dtype="f32")
-    model = IslTransport(mesh, gallery.create_wind("divergent"), cfg)
-    rho = torch.ones((mesh.ncell, mesh.np2), dtype=torch.float64, device=dev)
-    q1 = driver.init_tracers(mesh, ["gaussianhills", "slottedcylinders",
-                                    "cosinebells", "xyztrig"])
+    mesh = cubed_sphere.build(ne, 4, device=dev, dtype=dtype)
+    model = IslTransport(mesh, gallery.create_wind("divergent"),
+                         IslConfig(ne=ne, np_=4, **cfg))
+    rho = torch.ones((mesh.ncell, mesh.np2), dtype=dtype, device=dev)
+    q1 = driver.init_tracers(mesh, ICS4)
     q = q1.repeat(-(-nt // q1.shape[0]), 1, 1)[:nt].contiguous()
+    return mesh, model, rho, q
+
+
+def phase_small_reference(dev):
+    """ne4, 4 tracers, 3 steps: the card (kernels) against the CPU (plain
+    versions), in f64 (tolerance 1e-12) and on the single-precision route
+    (1e-4: torch's CUDA and CPU ops round f32 differently)."""
+    for filt, lim, dtype, tol in (("caas", "caas", F64, 1e-12),
+                                  ("qlt", "mn2", F64, 1e-12),
+                                  ("qlt", "mn2", F32, 1e-4)):
+        res = {}
+        for d in ("cpu", dev):
+            _, model, rho, q = _model(d, 4, 4, dtype, filter=filt,
+                                      limiter=lim, nsub=2)
+            dt = 86400.0 * 12 / 3
+            for s in range(3):
+                rho, q = model.step(rho, q, s * dt, (s + 1) * dt)
+            res[str(d)] = (rho.cpu(), q.cpu())
+        (rc, qc), (rg, qg) = res["cpu"], res[str(dev)]
+        err = max(float((rc - rg).abs().max()), float((qc - qg).abs().max()))
+        log(f"small reference (ne4, 4 tracers, 3 steps, {filt}/{lim}, "
+            f"{str(dtype)[6:]}): max |card - cpu| = {err:.3e} "
+            f"(tolerance {tol:g})")
+        if not err <= tol:
+            raise AssertionError(f"card run disagrees with the CPU run: {err}")
+
+
+def run_path(dev, name, dtype, nsteps, want, mass_tol=1e-12,
+             bounds_tol=5e-13, ne=30, nt=40, **cfg):
+    """Drive one path at ne30 np4 with 40 tracers for `nsteps` steps of a
+    12-day period through IslTransport.step, with every launch count set to
+    0 just before and read just after. `want`: launches per step of each
+    kernel (every other kernel must not launch). Returns the launch counts,
+    the median step time and the model with its final state."""
+    from compose_tpu_torch import _native, driver
+    from compose_tpu_torch.diagnostics import Observer
+
+    mesh, model, rho, q = _model(dev, ne, nt, dtype, **cfg)
     q0, rho0 = q, rho
     obs = Observer(mesh.dgbfi_gll, mesh.dgbfi_sphere,
                    ["rho"] + [f"q{i}" for i in range(nt)])
@@ -208,8 +259,7 @@ def phase_main_path(dev, ne=30, nsteps=120):
     T = 86400.0 * 12
     dt = T / nsteps
 
-    kernels = (cdr_fused.glbl_caas, cdr_fused.limit_caas, dss.dss_q)
-    for k in kernels:
+    for k in _native.KERNELS.values():
         k.launches = 0
     step_s = []
     for s in range(nsteps):
@@ -220,47 +270,95 @@ def phase_main_path(dev, ne=30, nsteps=120):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         obs.add_obs((s + 1) * dt, rho, list(q))
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = {n: k.launches for n, k in _native.KERNELS.items()}
 
-    want = {"glbl_caas": 2 * nsteps, "limit_caas": nsteps,
-            "dss_q": 2 * nsteps}
-    if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
+    expect = {n: want.get(n, 0) * nsteps for n in _native.KERNELS}
+    if launches != expect:
+        raise AssertionError(f"{name}: launch counts {launches} != {expect}")
     if not (bool(torch.isfinite(q).all()) and bool(torch.isfinite(rho).all())
-            and q.shape == q0.shape and rho.shape == rho0.shape):
-        raise AssertionError("non-finite or misshapen state")
-    ok, mass_err, bounds_err = obs.check()
+            and q.shape == q0.shape and rho.shape == rho0.shape
+            and q.dtype == rho.dtype == dtype):
+        raise AssertionError(f"{name}: non-finite or misshapen state")
+    ok, mass_err, bounds_err = obs.check(mass_tol, bounds_tol)
     if not ok:
-        raise AssertionError(f"Observer check failed: mass {mass_err:.3e}, "
-                             f"bounds {bounds_err:.3e}")
+        raise AssertionError(f"{name}: Observer check failed: mass "
+                             f"{mass_err:.3e}, bounds {bounds_err:.3e}")
     out = driver.summarize(mesh, q0[0], rho0, q[0], rho)
     sec = statistics.median(step_s[1:])
-    dof_s = mesh.ncell * mesh.np2 * nt / sec
-    log(f"main path ne{ne} np{np_} {nt} tracers, {nsteps} steps: "
-        f"step {sec * 1e3:.3f} ms (median of steps 2..{nsteps}; first "
-        f"{step_s[0] * 1e3:.1f} ms), {dof_s:.4e} tracer-DOF/s; "
-        f"l2 {out.l2_err:.4e} cv_gll {out.cv_gll:.3e}; Observer mass "
-        f"{mass_err:.3e} bounds {bounds_err:.3e}; launches/step "
-        f"K1 {launches['glbl_caas'] // nsteps} K2 "
-        f"{launches['limit_caas'] // nsteps} K3 {launches['dss_q'] // nsteps}")
-    return launches
+    per_step = " ".join(f"{n} {launches[n] // nsteps}" for n in want)
+    log(f"{name}: ne{ne} np4 {nt} tracers, {nsteps} steps: step "
+        f"{sec * 1e3:.3f} ms (median of steps 2..{nsteps}; first "
+        f"{step_s[0] * 1e3:.1f} ms), {mesh.ncell * mesh.np2 * nt / sec:.4e} "
+        f"tracer-DOF/s; l2 {out.l2_err:.4e} cv_gll {out.cv_gll:.3e}; "
+        f"Observer mass {mass_err:.3e} bounds {bounds_err:.3e} (bars "
+        f"{mass_tol:g}, {bounds_tol:g}); launches/step {per_step}")
+    return launches, model, rho, q
+
+
+def phase_paths(dev):
+    """The four ne30 paths; returns each kernel's launch count from the
+    path that carries it."""
+    from compose_tpu_torch.ops import local_qp
+
+    counts = {}
+    launches, *_ = run_path(
+        dev, "flagship pisl caas/caas (f32 geometry+interp, f64 CDR)", F64,
+        120, {"glbl_caas_f64": 2, "limit_caas_f64": 1, "dss_q_f64": 2},
+        filter="caas", limiter="caas", nsub=8, geom_dtype="f32",
+        interp_dtype="f32")
+    counts.update({n: launches[n] for n in ("glbl_caas_f64",
+                                            "limit_caas_f64", "dss_q_f64")})
+    launches, model, rho, q = run_path(
+        dev, "single-precision pisl qlt/mn2 (x64 off)", F32, 120,
+        {"dss_q_f32": 2}, mass_tol=1e-5, filter="qlt", limiter="mn2",
+        nsub=8)
+    counts["dss_q_f32"] = launches["dss_q_f32"]
+    # Where the f32 step's time goes, and the mn2 limiter's Newton cost:
+    # its QP at the step's shapes, timed at 25 and at 50 iterations (the
+    # f64-eps residual tolerance is out of f32's reach, so both run to
+    # max_its, and the difference is 25 iterations' cost).
+    pt = model.phase_times(rho, q, 0.0, 8640.0, iters=5)
+    log("single-precision qlt/mn2 phases (ms): " + ", ".join(
+        f"{k} {v * 1e3:.3f}" for k, v in pt.items()))
+    a = torch.clamp_min(model.F * rho, 1e-300)
+    b = torch.sum(a[None] * q, dim=-1) * 1.001
+    qp = (a, a, b, q * 0.9, q * 1.1, q)
+    t25, t50 = (cuda_ms(lambda: local_qp.solve_1eq_bc_qp(*qp, max_its=k),
+                        reps=5) for k in (25, 50))
+    log(f"mn2 limiter QP (40 x 5400 cells of 16 nodes, f32): {t50:.3f} ms "
+        f"at 50 iterations, {t25:.3f} ms at 25: "
+        f"{(t50 - t25) / 25:.4f} ms per Newton iteration")
+    launches, *_ = run_path(
+        dev, "single-precision pisl caas/caas (x64 off)", F32, 12,
+        {"glbl_caas_f32": 2, "limit_caas_f32": 1, "dss_q_f32": 2},
+        mass_tol=1e-5, filter="caas", limiter="caas", nsub=8)
+    counts.update({n: launches[n] for n in ("glbl_caas_f32",
+                                            "limit_caas_f32")})
+    run_path(dev, "pisl qlt/mn2 f64", F64, 12, {"dss_q_f64": 2},
+             filter="qlt", limiter="mn2", nsub=8)
+    return counts
 
 
 def phase_golden(dev):
     from compose_tpu_torch import driver
-    out = driver.run(ne=10, np_=4, nsteps=12,
-                     ics=("slottedcylinders", "cosinebells", "gaussianhills"),
-                     filter_="caas", limiter="caas", geom_dtype="f32",
-                     interp_dtype="f32", verbose=False, device=dev)
-    log(f"golden isl_caas_flagship_f32 (ne10, 12 steps): l2 "
-        f"{out.l2_err:.4e} cv_gll {out.cv_gll:.3e} min {out.min_e:.4f} max "
-        f"{out.max_e:.4f} step-mass {out.max_step_mass_err:.3e} "
-        f"step-bounds {out.max_step_bounds_err:.3e}")
-    if not (0 < out.l2_err <= 3.47e-1 and out.cv_gll <= 5e-14
-            and out.min_e >= 0.1 and out.max_e <= 1.0
-            and out.max_step_mass_err < 1e-12
-            and out.max_step_bounds_err < 5e-13):
-        raise AssertionError("golden row isl_caas_flagship_f32 failed")
+    ics = ("slottedcylinders", "cosinebells", "gaussianhills")
+    rows = (("isl_caas_flagship_f32", 3.47e-1,
+             dict(filter_="caas", limiter="caas", geom_dtype="f32",
+                  interp_dtype="f32")),
+            ("pisl_qlt_ne10", 3.34e-1, dict(filter_="qlt", limiter="mn2")),
+            ("pisl_caas_ne10", 3.47e-1, dict(filter_="caas", limiter="mn2")))
+    for name, l2_bar, kw in rows:
+        out = driver.run(ne=10, np_=4, nsteps=12, ics=ics, verbose=False,
+                         device=dev, **kw)
+        log(f"golden {name} (ne10, 12 steps): l2 {out.l2_err:.4e} (bar "
+            f"{l2_bar:g}) cv_gll {out.cv_gll:.3e} min {out.min_e:.4f} max "
+            f"{out.max_e:.4f} step-mass {out.max_step_mass_err:.3e} "
+            f"step-bounds {out.max_step_bounds_err:.3e}")
+        if not (0 < out.l2_err <= l2_bar and out.cv_gll <= 5e-14
+                and out.min_e >= 0.1 and out.max_e <= 1.0
+                and out.max_step_mass_err < 1e-12
+                and out.max_step_bounds_err < 5e-13):
+            raise AssertionError(f"golden row {name} failed")
 
 
 def main():
@@ -284,17 +382,18 @@ def main():
         f"({_native.library_path().name})")
 
     stats = {}
-    phase_kernels(dev, stats)
+    phase_kernels(dev, stats, F64)
+    phase_kernels(dev, stats, F32)
     phase_small_reference(dev)
-    launches = phase_main_path(dev)
+    launches = phase_paths(dev)
     phase_golden(dev)
 
-    rows = [("glbl_caas", K1_SRC, "compose_tpu/transport/cdr_fused.py:57"),
-            ("limit_caas", K2_SRC, "compose_tpu/transport/cdr_fused.py:258"),
-            ("dss_q", K3_SRC, "compose_tpu/transport/dss_face.py:115")]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=src, replaces=rep,
-             launches=launches[n], **stats[n]) for n, src, rep in rows]}))
+             launches=launches[n], **{k: stats[n][k] for k in keys})
+        for n, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,13 +1,15 @@
 """Build and bind the port's CUDA kernels (compose_tpu_torch/csrc/*.cu).
 
-The kernels have a plain C interface. At first use they are compiled by
-nvcc for sm_90a into one shared library under ``build/kernels/`` at the
-root of the checkout (git-ignored), named by a hash of the sources and
-flags so a stale library is never loaded, and bound with ctypes. Nothing is
-built at import: CPU-only machines import every module without nvcc.
+The kernels have a plain C interface. At first use each source is compiled
+by its own nvcc process for sm_90a (all started together), and the objects
+are linked into one shared library under ``build/kernels/`` at the root of
+the checkout (git-ignored), named by a hash of the sources and flags so a
+stale library is never loaded, and bound with ctypes. Nothing is built at
+import: CPU-only machines import every module without nvcc.
 
 Every C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; `check` turns a nonzero code into an exception.
+``cudaGetLastError()``. Each is called through its `Kernel` in `KERNELS`,
+which turns a nonzero code into an exception and counts the launch.
 """
 
 import ctypes
@@ -28,19 +30,23 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 # --fmad=false: nvcc would fuse a*b+c into one FMA; torch's eager ops never
 # do, and the kernels are compared with their plain versions bitwise.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures: name -> argtypes (all return int, a cudaError_t).
-_SIGNATURES = {
+# C signatures: name -> argtypes (all return int, a cudaError_t). Each
+# kernel has an f64 and an f32 entry, instantiated from one template.
+_ARGTYPES = {
     # qmin, qmass, qmax, extra, out, nt, ncell, stream
-    "glbl_caas_f64": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "glbl_caas": (_P, _P, _P, _P, _P, _I, _I, _P),
     # rhom, rho, Q, qmin, qmax, b, out, nt, ncell, stream
-    "limit_caas_f64": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "limit_caas": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     # w, F, q, c2d_idx, c2d_mask, out, nt, cnn, ndgll, stream
-    "dss_q_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "dss_q": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
+_SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
+_SIGNATURES = {f"{k}_{sfx}": v for k, v in _ARGTYPES.items()
+               for sfx in _SUFFIX.values()}
 
 
 def _sources():
@@ -71,19 +77,22 @@ def lib() -> ctypes.CDLL:
     so = library_path()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                                 capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                                   f"{res.stdout}\n{res.stderr}")
-            os.replace(tmp, so)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            nvcc = _nvcc()
+            objs, procs = [], []
+            for src in _sources():
+                if src.suffix == ".cu":
+                    objs.append(os.path.join(tmp, src.stem + ".o"))
+                    procs.append(subprocess.Popen(
+                        [nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)],
+                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                        text=True))
+            _wait_all(procs)
+            out = os.path.join(tmp, so.name)
+            _wait_all([subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-shared", "-o", out, *objs],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)])
+            os.replace(out, so)
     handle = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(handle, name)
@@ -92,9 +101,40 @@ def lib() -> ctypes.CDLL:
     return handle
 
 
-def check(code: int, name: str):
-    if code != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed: cudaError {code}")
+def _wait_all(procs):
+    """Wait for every nvcc process; raise with the output of those that
+    failed."""
+    logs = [(p.args, p.communicate()[0], p.returncode) for p in procs]
+    bad = [f"{' '.join(a)}\n-> {rc}\n{log}" for a, log, rc in logs if rc]
+    if bad:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(bad))
+
+
+class Kernel:
+    """One C entry point. Calling it launches the kernel on `stream`,
+    raises on a launch error, and adds one to `launches`."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+    def __call__(self, *args, stream):
+        code = getattr(lib(), self.name)(*args, stream)
+        if code != 0:
+            raise RuntimeError(f"CUDA kernel {self.name} failed: cudaError "
+                               f"{code}")
+        self.launches += 1
+
+
+KERNELS = {name: Kernel(name) for name in _SIGNATURES}
+
+
+def kernel(base: str, dtype) -> Kernel:
+    """The Kernel of `base` ('glbl_caas', 'limit_caas', 'dss_q') for float
+    dtype `dtype`."""
+    if dtype not in _SUFFIX:
+        raise TypeError(f"{base}: no kernel for {dtype}")
+    return KERNELS[f"{base}_{_SUFFIX[dtype]}"]
 
 
 def stream_of(t) -> int:

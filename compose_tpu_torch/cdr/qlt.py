@@ -1,0 +1,262 @@
+"""QLT: quasi-local tree constrained density reconstructor
+(compose_tpu.cdr.qlt), for the SHAPEPRESERVE problem type that the spf
+'qlt' filter uses.
+
+Both sweeps are level-batched over a flat tree (tree.py): each level is one
+gather, a vectorized node solve and an index_copy_ into the level's ids, so
+the solve is O(log ncell) rounds of tensor ops whatever the tracer count.
+No Python loop runs over nodes. Tracers are a dense leading axis.
+
+Problem types follow cedr::ProblemType: a bitmask of conserve=1,
+shapepreserve=2, consistent=4, nonnegative=16. The other types belong to
+the standalone CEDR and raise NotImplementedError.
+"""
+
+import torch
+
+from ..ops import local_qp
+from . import tree as tree_mod
+
+CONSERVE = 1
+SHAPEPRESERVE = 2
+CONSISTENT = 4
+NONNEGATIVE = 16
+
+_EPS = 2.220446049250313e-16
+
+
+def _sum2(x):
+    return x[..., 0] + x[..., 1]
+
+
+def solve_1eq_bc_qp_2d(w, a, b, xlo, xhi, y, clip=True,
+                       early_exit_on_tol=True):
+    """Closed-form 2-unknown QP, batched over leading axes. w, a, xlo, xhi,
+    y: (..., 2); b: (...,). Returns (x, info): info 1 solved, -1 infeasible
+    (x then the nearest corner)."""
+    r_tol = local_qp.calc_r_tol(b, a, y)
+
+    r_lo = _sum2(a * xlo) - b
+    r_hi = _sum2(a * xhi) - b
+    lo_is_sol = torch.abs(r_lo) <= r_tol
+    hi_is_sol = torch.abs(r_hi) <= r_tol
+    infeas = (~lo_is_sol) & (~hi_is_sol) & ((r_lo > 0) | (r_hi < 0))
+    if not early_exit_on_tol:
+        lo_is_sol = torch.zeros_like(lo_is_sol)
+        hi_is_sol = torch.zeros_like(hi_is_sol)
+        infeas = torch.zeros_like(infeas)
+    corner_sel = lo_is_sol | (infeas & (r_lo > 0))
+    x_corner = torch.where(corner_sel[..., None], xlo, xhi)
+    corner_done = lo_is_sol | hi_is_sol | infeas
+
+    # Unconstrained optimum along the constraint line.
+    q = a / w
+    qmass = _sum2(a * q)
+    dm = b - _sum2(a * y)
+    lam = dm / qmass
+    x_free = y + lam[..., None] * q
+    free_ok = torch.all((x_free >= xlo) & (x_free <= xhi), dim=-1)
+
+    # Constrained: intersect the line a'x = b with the box walls.
+    x_base = 0.5 * b[..., None] / a
+    x_dir = torch.stack([-a[..., 1], a[..., 0]], dim=-1)
+    alphas = torch.stack([
+        (xlo[..., 1] - x_base[..., 1]) / x_dir[..., 1],   # 0: bottom
+        (xhi[..., 0] - x_base[..., 0]) / x_dir[..., 0],   # 1: right
+        (xhi[..., 1] - x_base[..., 1]) / x_dir[..., 1],   # 2: top
+        (xlo[..., 0] - x_base[..., 0]) / x_dir[..., 0],   # 3: left
+    ], dim=-1)
+    order = torch.argsort(alphas, dim=-1, stable=True)
+    mid_ai = order[..., 1:3]                               # wall indices
+    mid_alpha = torch.gather(alphas, -1, mid_ai)
+
+    def objective(k):
+        d = y - (x_base + mid_alpha[..., k, None] * x_dir)
+        return _sum2(w * (d * d))
+
+    pick = torch.where(objective(0) <= objective(1), 0, 1)
+    ai = torch.gather(mid_ai, -1, pick[..., None])[..., 0]
+
+    # Fix one coordinate at its wall, solve the other from the constraint.
+    fixed_is_x1 = (ai == 0) | (ai == 2)     # bottom/top fix x[1]
+    fixed_val = torch.where(
+        ai == 0, xlo[..., 1], torch.where(
+            ai == 1, xhi[..., 0], torch.where(ai == 2, xhi[..., 1],
+                                              xlo[..., 0])))
+    a_fixed = torch.where(fixed_is_x1, a[..., 1], a[..., 0])
+    a_free = torch.where(fixed_is_x1, a[..., 0], a[..., 1])
+    free_val = (b - a_fixed * fixed_val) / a_free
+    if clip:
+        free_lo = torch.where(fixed_is_x1, xlo[..., 0], xlo[..., 1])
+        free_hi = torch.where(fixed_is_x1, xhi[..., 0], xhi[..., 1])
+        free_val = torch.minimum(torch.maximum(free_val, free_lo), free_hi)
+    x_wall = torch.where(
+        fixed_is_x1[..., None],
+        torch.stack([free_val, fixed_val], dim=-1),
+        torch.stack([fixed_val, free_val], dim=-1))
+
+    x = torch.where(free_ok[..., None], x_free, x_wall)
+    x = torch.where(corner_done[..., None], x_corner, x)
+    info = torch.where(infeas, -1, 1).to(torch.int32)
+    return x, info
+
+
+def r2l_nl_adjust_bounds(Qm_bnd, rhom, Qm_extra):
+    """Feasibility-restoring bound relaxation, batched. Qm_bnd, rhom:
+    (..., 2); Qm_extra: (...,). Returns the adjusted Qm_bnd."""
+    q = Qm_bnd / rhom
+    neg = Qm_extra < 0
+    # i0: the kid whose q bound is (neg) the larger / (pos) the smaller.
+    i0_is_0 = torch.where(neg, q[..., 0] >= q[..., 1], q[..., 0] <= q[..., 1])
+    q_i0 = torch.where(i0_is_0, q[..., 0], q[..., 1])
+    q_i1 = torch.where(i0_is_0, q[..., 1], q[..., 0])
+    rhom_i0 = torch.where(i0_is_0, rhom[..., 0], rhom[..., 1])
+    Qm_gap = (q_i1 - q_i0) * rhom_i0
+    single_ok = torch.where(neg, Qm_gap <= Qm_extra, Qm_gap >= Qm_extra)
+    zero = torch.zeros_like(Qm_extra)
+    single = Qm_bnd + torch.stack([torch.where(i0_is_0, Qm_extra, zero),
+                                   torch.where(i0_is_0, zero, Qm_extra)],
+                                  dim=-1)
+    # Both kids: equalize the q bounds.
+    Qm_tot = Qm_bnd[..., 0] + Qm_bnd[..., 1] + Qm_extra
+    q_tot = (Qm_tot / (rhom[..., 0] + rhom[..., 1]))[..., None]
+    return torch.where(single_ok[..., None], single, q_tot * rhom)
+
+
+def solve_node_problem(problem_type, rhom, pd, Qm, rhom0, k0d, rhom1, k1d,
+                       prefer_mass_con_to_bounds=False):
+    """Batched SHAPEPRESERVE node QP. pd, k0d, k1d: (..., 3) = (Qm_min, Qm,
+    Qm_max) of the node and its kids (the l2r data); rhom*: (...,).
+    Returns the kids' masses (Qm0, Qm1)."""
+    if problem_type != SHAPEPRESERVE:
+        raise NotImplementedError(
+            f"QLT problem type {problem_type} is not ported (SHAPEPRESERVE "
+            "only)")
+    Qm_min_kids = torch.stack([k0d[..., 0], k1d[..., 0]], dim=-1)
+    Qm_orig_kids = torch.stack([k0d[..., 1], k1d[..., 1]], dim=-1)
+    Qm_max_kids = torch.stack([k0d[..., 2], k1d[..., 2]], dim=-1)
+    rhom_kids = torch.stack([rhom0, rhom1], dim=-1)
+
+    Qm_min, Qm_max = pd[..., 0], pd[..., 2]
+    lo = Qm < Qm_min
+    hi = Qm > Qm_max
+    tol = 10 * _EPS
+    discrepancy = torch.where(lo, Qm_min - Qm, Qm - Qm_max)
+    act = (lo | hi) & (discrepancy > tol * (Qm_max - Qm_min))
+    target = Qm - torch.where(lo, Qm_min, Qm_max)
+    adj_min = r2l_nl_adjust_bounds(Qm_min_kids, rhom_kids, target)
+    adj_max = r2l_nl_adjust_bounds(Qm_max_kids, rhom_kids, target)
+    Qm_min_kids = torch.where((act & lo)[..., None], adj_min, Qm_min_kids)
+    Qm_max_kids = torch.where((act & hi)[..., None], adj_max, Qm_max_kids)
+
+    # Nothing changed and the kids are feasible: pass their masses through.
+    no_change = ((~lo) & (~hi) & (Qm == pd[..., 1])
+                 & torch.all((Qm_orig_kids >= Qm_min_kids)
+                             & (Qm_orig_kids <= Qm_max_kids), dim=-1))
+
+    ones = torch.ones_like(Qm_min_kids)
+    x, _ = solve_1eq_bc_qp_2d(
+        1.0 / rhom_kids, ones, Qm, Qm_min_kids, Qm_max_kids, Qm_orig_kids,
+        clip=not prefer_mass_con_to_bounds,
+        early_exit_on_tol=not prefer_mass_con_to_bounds)
+    x = torch.where(no_change[..., None], Qm_orig_kids, x)
+    return x[..., 0], x[..., 1]
+
+
+class _Level:
+    """One tree level's index tensors on a device: node ids, kid ids (kid 1
+    clamped to 0 where absent), the single-kid mask, and the two-kid nodes'
+    kid-1 ids with their positions in the level."""
+
+    def __init__(self, ids, k0, k1, device):
+        def t(a):
+            return torch.as_tensor(a.astype("int64"), device=device)
+        self.ids, self.k0 = t(ids), t(k0)
+        self.k1s = t(k1.clip(min=0))
+        self.single = torch.as_tensor(k1 < 0, device=device)
+        self.pair = t((k1 >= 0).nonzero()[0])
+        self.k1_pair = t(k1[k1 >= 0])
+
+
+class QLT:
+    """Functional QLT over a fixed tree, SHAPEPRESERVE problems.
+
+        q = QLT(ncells)
+        Qm_out = q.run(rhom, Qm, Qm_min, Qm_max, root_extra=extra)
+
+    Tracer arrays have shape (nt, ncells), rhom (ncells,).
+    """
+
+    def __init__(self, ncells: int, problem_type: int = SHAPEPRESERVE,
+                 imbalanced_tree: bool = False,
+                 prefer_mass_con_to_bounds: bool = False):
+        if problem_type != SHAPEPRESERVE:
+            raise NotImplementedError(
+                f"QLT problem type {problem_type} is not ported "
+                "(SHAPEPRESERVE only)")
+        self.ncells = ncells
+        self.problem_type = problem_type
+        self.prefer = prefer_mass_con_to_bounds
+        self.tree = tree_mod.build(ncells, imbalanced_tree)
+        self._levels = {}
+
+    def _levels_on(self, device):
+        key = str(device)
+        if key not in self._levels:
+            self._levels[key] = [_Level(*lv, device)
+                                 for lv in self.tree.levels]
+        return self._levels[key]
+
+    def run(self, rhom, Qm, Qm_min, Qm_max, root_extra=None):
+        """Redistributed leaf masses (nt, ncells). root_extra: optional
+        (nt,) mass added to the ROOT total only (the spf contract
+        root_mass = Q_data(root) + extra_mass), leaving every leaf channel
+        untouched."""
+        t = self.tree
+        levels = self._levels_on(Qm.device)
+        nt, nl, nn = Qm.shape[0], t.nleaf, t.nnodes
+        kw = dict(dtype=Qm.dtype, device=Qm.device)
+
+        def leaves(x):
+            V = torch.zeros(x.shape[:-1] + (nn,), **kw)
+            V[..., :nl] = x
+            return V
+
+        V_rho, V_min, V_Qm, V_max = (leaves(x)
+                                     for x in (rhom, Qm_min, Qm, Qm_max))
+
+        # Leaf to root: kid sums (a single kid passes through).
+        def comb_sum(V, lv):
+            v1 = torch.where(lv.single, 0.0, V[..., lv.k1s])
+            return V[..., lv.k0] + v1
+
+        for lv in levels:
+            for V in (V_rho, V_min, V_max, V_Qm):
+                V.index_copy_(-1, lv.ids, comb_sum(V, lv))
+
+        # Root: the total mass, plus the extra.
+        M_root = V_Qm[:, t.root]
+        if root_extra is not None:
+            M_root = M_root + root_extra
+        M = torch.zeros((nt, nn), **kw)
+        M[:, t.root] = M_root
+
+        # Root to leaf: per-level batched node QPs. A level reads its
+        # parents' masses (written by the level above) before it writes its
+        # kids'.
+        for lv in reversed(levels):
+            def data(idx):
+                return torch.stack([V_min[:, idx], V_Qm[:, idx],
+                                    V_max[:, idx]], dim=-1)
+
+            Qm_node = M[:, lv.ids]
+            shape = Qm_node.shape
+            rhom0 = V_rho[lv.k0].expand(shape)
+            rhom1 = torch.where(lv.single, 1.0, V_rho[lv.k1s]).expand(shape)
+            Qm0, Qm1 = solve_node_problem(
+                self.problem_type, V_rho[lv.ids].expand(shape), data(lv.ids),
+                Qm_node, rhom0, data(lv.k0), rhom1, data(lv.k1s),
+                self.prefer)
+            M.index_copy_(1, lv.k0, torch.where(lv.single, Qm_node, Qm0))
+            M.index_copy_(1, lv.k1_pair, Qm1[:, lv.pair])
+        return M[:, :nl]

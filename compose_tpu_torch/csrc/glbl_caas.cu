@@ -1,17 +1,18 @@
-// K1: global CAAS mass redistribution over cells, one block per tracer row.
+// K1: global CAAS mass redistribution over cells, one block per tracer row,
+// templated over the real type: glbl_caas_f64 and glbl_caas_f32.
 //
 // Replaces the TPU kernel compose_tpu/transport/cdr_fused.py:_glbl_caas_kernel
 // (df64 pairs, fold-in-half row sums). Semantics are those of
-// compose_tpu/transport/spf.py:glbl_caas_gsum with gsum = bfb_sum, in native
-// f64:
+// compose_tpu/transport/spf.py:glbl_caas_gsum with gsum = bfb_sum, in the
+// tensors' own type (f64, or f32 on the single-precision route):
 //   delta = clip(mass, [min, max]) - mass
 //   m     = extra - sum(delta)
 //   v     = headroom toward max if m > 0, else toward min
 //   out   = (mass + delta) + (m / sum(v)) * v        (0 if sum(v) == 0)
 //
-// Bound: memory; three f64 reads per cell per pass over a row of ~5400 cells
-// (40 rows at the flagship size, ~5 MB in all), so the kernel is launch- and
-// latency-bound rather than bandwidth-bound.
+// Bound: memory; three reads per cell per pass over a row of ~5400 cells
+// and one write (40 rows at the flagship size, ~6.9 MB in f64), so the
+// kernel is launch- and latency-bound rather than bandwidth-bound.
 //
 // Design: the row is zero-padded (virtually) to npad = 2^k. Each of T threads
 // sums E = npad / T adjacent values with a binary-counter stack (completed
@@ -28,17 +29,18 @@ namespace {
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxLevels = 32;
 
-__device__ __forceinline__ double clip_delta(double ms, double lo, double hi) {
-  return ms < lo ? lo - ms : (ms > hi ? hi - ms : 0.0);
+template <class T>
+__device__ __forceinline__ T clip_delta(T ms, T lo, T hi) {
+  return ms < lo ? lo - ms : (ms > hi ? hi - ms : T(0));
 }
 
 // Adjacent-pair tree sum of f(lo), ..., f(lo + n - 1), n a power of two.
-template <class F>
-__device__ double serial_pair_tree(F f, int lo, int n) {
-  double stack[kMaxLevels];
+template <class T, class F>
+__device__ T serial_pair_tree(F f, int lo, int n) {
+  T stack[kMaxLevels];
   int top = 0;
   for (int i = 0; i < n; ++i) {
-    double v = f(lo + i);
+    T v = f(lo + i);
     int lvl = 0;
     for (int j = i; j & 1; j >>= 1) {
       v = stack[lvl] + v;
@@ -50,54 +52,71 @@ __device__ double serial_pair_tree(F f, int lo, int n) {
   return stack[top];
 }
 
-// Adjacent-pair tree over the block's T = blockDim.x partials (T a power of
-// two). All threads receive the total.
-__device__ double block_pair_tree(double v, double* sh) {
-  const int t = threadIdx.x, T = blockDim.x;
+// Adjacent-pair tree over the block's blockDim.x partials (a power of two).
+// All threads receive the total.
+template <class T>
+__device__ T block_pair_tree(T v, T* sh) {
+  const int t = threadIdx.x, nthreads = blockDim.x;
   sh[t] = v;
   __syncthreads();
-  for (int s = 1; s < T; s <<= 1) {
+  for (int s = 1; s < nthreads; s <<= 1) {
     if ((t & (2 * s - 1)) == 0) sh[t] = sh[t] + sh[t + s];
     __syncthreads();
   }
-  const double total = sh[0];
+  const T total = sh[0];
   __syncthreads();
   return total;
 }
 
-__global__ void glbl_caas_kernel(const double* __restrict__ qmin,
-                                 const double* __restrict__ qmass,
-                                 const double* __restrict__ qmax,
-                                 const double* __restrict__ extra,
-                                 double* __restrict__ out, int ncell, int E) {
-  __shared__ double sh[kMaxThreads];
+template <class T>
+__global__ void glbl_caas_kernel(const T* __restrict__ qmin,
+                                 const T* __restrict__ qmass,
+                                 const T* __restrict__ qmax,
+                                 const T* __restrict__ extra,
+                                 T* __restrict__ out, int ncell, int E) {
+  __shared__ T sh[kMaxThreads];
   const long base = (long)blockIdx.x * ncell;
-  const double* mn = qmin + base;
-  const double* ms = qmass + base;
-  const double* mx = qmax + base;
+  const T* mn = qmin + base;
+  const T* ms = qmass + base;
+  const T* mx = qmax + base;
   const int lo = threadIdx.x * E;
+  const T zero = T(0);
 
-  auto delta_at = [&](int i) -> double {
-    return i < ncell ? clip_delta(ms[i], mn[i], mx[i]) : 0.0;
+  auto delta_at = [&](int i) -> T {
+    return i < ncell ? clip_delta(ms[i], mn[i], mx[i]) : zero;
   };
-  const double dsum = block_pair_tree(serial_pair_tree(delta_at, lo, E), sh);
-  const double m = extra[blockIdx.x] - dsum;
-  const bool up = m > 0.0;
+  const T dsum = block_pair_tree(serial_pair_tree<T>(delta_at, lo, E), sh);
+  const T m = extra[blockIdx.x] - dsum;
+  const bool up = m > zero;
 
-  auto v_at = [&](int i) -> double {
-    if (i >= ncell) return 0.0;
-    const double a = ms[i], l = mn[i], h = mx[i];
-    const double msd = a + clip_delta(a, l, h);
-    return up ? (a >= h ? 0.0 : h - msd) : (a <= l ? 0.0 : msd - l);
+  auto v_at = [&](int i) -> T {
+    if (i >= ncell) return zero;
+    const T a = ms[i], l = mn[i], h = mx[i];
+    const T msd = a + clip_delta(a, l, h);
+    return up ? (a >= h ? zero : h - msd) : (a <= l ? zero : msd - l);
   };
-  const double vsum = block_pair_tree(serial_pair_tree(v_at, lo, E), sh);
-  const double fac = vsum != 0.0 ? m / vsum : 0.0;
+  const T vsum = block_pair_tree(serial_pair_tree<T>(v_at, lo, E), sh);
+  const T fac = vsum != zero ? m / vsum : zero;
 
   for (int i = threadIdx.x; i < ncell; i += blockDim.x) {
-    const double a = ms[i];
-    const double msd = a + clip_delta(a, mn[i], mx[i]);
+    const T a = ms[i];
+    const T msd = a + clip_delta(a, mn[i], mx[i]);
     out[base + i] = msd + fac * v_at(i);
   }
+}
+
+template <class T>
+int launch(const T* qmin, const T* qmass, const T* qmax, const T* extra,
+           T* out, int nt, int ncell, void* stream) {
+  int npad = 1;
+  while (npad < ncell) npad <<= 1;
+  const int threads = npad < kMaxThreads ? npad : kMaxThreads;
+  const int E = npad / threads;
+  if (nt > 0 && ncell > 0)
+    glbl_caas_kernel<T><<<nt, threads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        qmin, qmass, qmax, extra, out, ncell, E);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -105,12 +124,11 @@ __global__ void glbl_caas_kernel(const double* __restrict__ qmin,
 extern "C" int glbl_caas_f64(const double* qmin, const double* qmass,
                              const double* qmax, const double* extra,
                              double* out, int nt, int ncell, void* stream) {
-  int npad = 1;
-  while (npad < ncell) npad <<= 1;
-  const int T = npad < kMaxThreads ? npad : kMaxThreads;
-  const int E = npad / T;
-  if (nt > 0 && ncell > 0)
-    glbl_caas_kernel<<<nt, T, 0, static_cast<cudaStream_t>(stream)>>>(
-        qmin, qmass, qmax, extra, out, ncell, E);
-  return static_cast<int>(cudaGetLastError());
+  return launch(qmin, qmass, qmax, extra, out, nt, ncell, stream);
+}
+
+extern "C" int glbl_caas_f32(const float* qmin, const float* qmass,
+                             const float* qmax, const float* extra,
+                             float* out, int nt, int ncell, void* stream) {
+  return launch(qmin, qmass, qmax, extra, out, nt, ncell, stream);
 }

@@ -6,6 +6,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .config import F64
 from .ops.reduce import bfb_sum
 
 
@@ -21,22 +22,25 @@ class FieldSeries:
 class Observer:
     """Per-step mass/extrema series; `check` applies the reference's bars
     (mass err < 1e-12, bounds err < 5e-13). Each observation reads its four
-    numbers per field back to the host (a device sync)."""
+    numbers per field back to the host (a device sync). Masses are summed
+    in f64 whatever the fields' dtype, so that an f32 run's series does not
+    measure its own rounding."""
 
     def __init__(self, F_gll, F_sphere, names):
-        self.F_gll = F_gll.reshape(-1)
-        self.F_sphere = F_sphere.reshape(-1)
+        self.F_gll = F_gll.reshape(-1).to(F64)
+        self.F_sphere = F_sphere.reshape(-1).to(F64)
         self.fields = [FieldSeries(n) for n in names]
         self.times = []
 
     def add_obs(self, t, rho, qs):
         self.times.append(float(t))
         for fs, data in zip(self.fields, [rho] + list(qs)):
-            Q = rho.reshape(-1) if fs.name == "rho" \
-                else (data * rho).reshape(-1)
+            Q = rho.to(F64).reshape(-1) if fs.name == "rho" \
+                else (data.to(F64) * rho.to(F64)).reshape(-1)
             vals = torch.stack([bfb_sum(self.F_gll * Q),
                                 bfb_sum(self.F_sphere * Q),
-                                torch.amin(data), torch.amax(data)]).tolist()
+                                torch.amin(data).to(F64),
+                                torch.amax(data).to(F64)]).tolist()
             fs.mass_gll.append(vals[0])
             fs.mass_sphere.append(vals[1])
             fs.min_.append(vals[2])

@@ -1,7 +1,12 @@
 """End-to-end transport runs (compose_tpu.driver), for method pisl with the
-CAAS filter and CAAS limiter: mesh + wind + initial conditions, the time
-loop with the reference's per-step checks on tracer 0, and the final error
-norms of the reference's `print_error`.
+filters qlt | mn2 | caas and the limiters mn2 | caas: mesh + wind + initial
+conditions, the time loop with the reference's per-step checks on tracer
+0, and the final error norms of the reference's `print_error`.
+
+`x64=False` is the single-precision route, the counterpart of the JAX
+package's COMPOSE_TPU_X64=0: the state, the mesh tables, the geometry and
+the CDR are all f32. The checks and error norms are measured in f64 in
+both routes, so that they do not measure their own rounding.
 """
 
 import dataclasses
@@ -11,7 +16,7 @@ import numpy as np
 import torch
 
 from . import constants
-from .config import F64, resolve_device
+from .config import F64, real_dtype, resolve_device
 from .mesh import cubed_sphere
 from .ops import sphere
 from .ops.reduce import bfb_sum
@@ -65,7 +70,7 @@ def _reldif(a, b):
 
 def init_tracers(mesh, ic_names):
     """Evaluate the ICs at the CGLL nodes and inject to the DGLL slots:
-    (nt, ncell, np2) f64 on the mesh's device."""
+    (nt, ncell, np2) in the mesh's dtype on its device."""
     lat, lon = sphere.xyz2ll(mesh.cgll_xyz)
     d2c = mesh.dgll2cgll.reshape(-1)
     return torch.stack([
@@ -77,13 +82,11 @@ def init_tracers(mesh, ic_names):
 def summarize(mesh, f0, rho0, f, rho, et_timestep=0.0,
               max_step_mass_err=0.0, max_step_bounds_err=0.0):
     """The reference's final error norms of a tracer (print_error): f0, f
-    its initial and final mixing ratios, rho0, rho the densities."""
-    fs = f0.reshape(-1).cpu().numpy()
-    ds = rho0.reshape(-1).cpu().numpy()
-    fe = f.reshape(-1).cpu().numpy()
-    de = rho.reshape(-1).cpu().numpy()
-    w = mesh.dgbfi_sphere.reshape(-1).cpu().numpy()
-    wg = mesh.dgbfi_gll.reshape(-1).cpu().numpy()
+    its initial and final mixing ratios, rho0, rho the densities. Computed
+    in f64 on the host whatever the run's dtype."""
+    fs, ds, fe, de, w, wg = (
+        x.reshape(-1).to(F64).cpu().numpy()
+        for x in (f0, rho0, f, rho, mesh.dgbfi_sphere, mesh.dgbfi_gll))
     e = fe - fs
     return RunOutput(
         l2_err=float(np.sqrt(np.sum(w * e * e) / np.sum(w * fs * fs))),
@@ -101,14 +104,17 @@ def summarize(mesh, f0, rho0, f, rho, et_timestep=0.0,
 
 
 def run(ne=10, np_=4, nsteps=12, T_days=12.0, ics=("gaussianhills",),
-        ode="divergent", method="pisl", filter_="caas", limiter="caas",
+        ode="divergent", method="pisl", filter_="qlt", limiter="mn2",
         basis="GllNodal", nsub=8, dmc="none", geom_dtype="f64",
-        interp_dtype="f64", verbose=True, *, device):
-    """One slmmir-style pisl run on `device`; returns RunOutput."""
+        interp_dtype="f64", verbose=True, *, x64=True, device="cuda"):
+    """One slmmir-style pisl run on `device` (the current CUDA device
+    unless the CPU is asked for), in f64 or, with x64=False, in f32;
+    returns RunOutput."""
     if method != "pisl":
         raise NotImplementedError(f"method '{method}' is not ported")
     dev = resolve_device(device)
-    mesh = cubed_sphere.build(ne, np_, basis, device=dev)
+    dtype = real_dtype(x64)
+    mesh = cubed_sphere.build(ne, np_, basis, device=dev, dtype=dtype)
     wind = gallery.create_wind(ode)
     cfg = IslConfig(ne=ne, np_=np_, basis=basis, filter=filter_,
                     limiter=limiter, rho_isl=True, nsub=nsub,
@@ -116,17 +122,19 @@ def run(ne=10, np_=4, nsteps=12, T_days=12.0, ics=("gaussianhills",),
                     geom_dtype=geom_dtype, interp_dtype=interp_dtype)
     model = IslTransport(mesh, wind, cfg)
 
-    rho = torch.ones((mesh.ncell, mesh.np2), dtype=F64, device=dev)
+    rho = torch.ones((mesh.ncell, mesh.np2), dtype=dtype, device=dev)
     q = init_tracers(mesh, ics)
     q0, rho0 = q, rho
     T = constants.day2sec(T_days)
     dt = T / nsteps
-    F_gll = mesh.dgbfi_gll.reshape(-1)
+    F_gll = mesh.dgbfi_gll.reshape(-1).to(F64)
 
     def tracer0_stats(q, rho):
-        # One host read per step: mass (bfb tree), min, max of tracer 0.
-        return torch.stack([bfb_sum(F_gll * (q[0] * rho).reshape(-1)),
-                            torch.amin(q[0]), torch.amax(q[0])]).tolist()
+        # One host read per step: mass (bfb tree, in f64), min, max of
+        # tracer 0.
+        Q = (q[0].to(F64) * rho.to(F64)).reshape(-1)
+        return torch.stack([bfb_sum(F_gll * Q), torch.amin(q[0]).to(F64),
+                            torch.amax(q[0]).to(F64)]).tolist()
 
     mass_prev, q_min0, q_max0 = tracer0_stats(q, rho)
     max_step_mass_err = 0.0

@@ -10,6 +10,7 @@ requested device. Integer tables are int64 (torch indexing wants int64).
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -57,25 +58,27 @@ def _face_key(face, gx2, gy2, N):
 
 @dataclasses.dataclass(frozen=True)
 class CubedSphereMesh:
-    """Static mesh tables, all tensors on `device`."""
+    """Static mesh tables, all tensors on `device`, float tables in
+    `dtype`."""
     ne: int
     np_: int
     ncell: int
     cnn: int
     basis_name: str
     device: torch.device
-    corners: torch.Tensor        # (ncell, 4, 3) f64 cell corner unit vectors
-    cell_nodes_xyz: torch.Tensor  # (ncell, np, np, 3) f64 node positions
+    dtype: torch.dtype
+    corners: torch.Tensor        # (ncell, 4, 3) cell corner unit vectors
+    cell_nodes_xyz: torch.Tensor  # (ncell, np, np, 3) node positions
     dgll2cgll: torch.Tensor      # (ncell, np2) int64 -> continuous node id
-    cgll_xyz: torch.Tensor       # (cnn, 3) f64 canonical node coordinates
+    cgll_xyz: torch.Tensor       # (cnn, 3) canonical node coordinates
     cgll_rep: torch.Tensor       # (cnn,) int64 representative dgll slot
     c2d_idx: torch.Tensor        # (cnn, 4) int64 coincident dgll slots
     c2d_mask: torch.Tensor       # (cnn, 4) bool
-    jac_node: torch.Tensor       # (ncell, np2) f64 corner-bilinear |J|
-    dgbfi_gll: torch.Tensor      # (ncell, np2) f64 Homme mass weights
-    dgbfi_sphere: torch.Tensor   # (ncell, np2) f64 spherical integrals
-    basis_x: torch.Tensor        # (np,) f64
-    basis_w: torch.Tensor        # (np,) f64
+    jac_node: torch.Tensor       # (ncell, np2) corner-bilinear |J|
+    dgbfi_gll: torch.Tensor      # (ncell, np2) Homme mass weights
+    dgbfi_sphere: torch.Tensor   # (ncell, np2) spherical integrals
+    basis_x: torch.Tensor        # (np,)
+    basis_w: torch.Tensor        # (np,)
 
     @property
     def np2(self):
@@ -87,49 +90,51 @@ _TABLES = ("corners", "cell_nodes_xyz", "dgll2cgll", "cgll_xyz", "cgll_rep",
            "basis_x", "basis_w")
 
 
-def _to_tensor(a, device):
+def _to_tensor(a, device, dtype):
     a = np.asarray(a)
     if a.dtype == np.bool_:
         return torch.tensor(a, dtype=torch.bool, device=device)
     if np.issubdtype(a.dtype, np.integer):
         return torch.tensor(a, dtype=torch.int64, device=device)
-    return torch.tensor(a, dtype=F64, device=device)
+    return torch.tensor(a, dtype=dtype, device=device)
 
 
-def from_numpy(tables: dict, device) -> CubedSphereMesh:
+def from_numpy(tables: dict, device="cuda", dtype=F64) -> CubedSphereMesh:
     """Mesh from numpy tables (e.g. a compose_tpu mesh's fields converted
     with np.asarray): keys ne, np_ and the table names of CubedSphereMesh.
-    Only uniform, unrotated meshes are supported."""
+    Float tables are cast to `dtype`. Only uniform, unrotated meshes are
+    supported."""
     dev = resolve_device(device)
     for k in ("rot_R", "warp_R", "sub_parent_ne"):
         if tables.get(k) is not None and np.any(np.asarray(tables[k])):
             raise NotImplementedError(f"mesh option {k} is not ported")
     ne, np_ = int(tables["ne"]), int(tables["np_"])
-    t = {k: _to_tensor(tables[k], dev) for k in _TABLES}
+    t = {k: _to_tensor(tables[k], dev, dtype) for k in _TABLES}
     return CubedSphereMesh(
         ne=ne, np_=np_, ncell=6 * ne * ne, cnn=int(t["cgll_xyz"].shape[0]),
         basis_name=str(tables.get("basis_name", "GllNodal")), device=dev,
-        **t)
+        dtype=dtype, **t)
 
 
 _BUILD_CACHE = {}
 
 
-def build(ne: int, np_: int = 4, basis_name: str = "GllNodal", *, device,
-          tq_order: int = 18) -> CubedSphereMesh:
-    """Cached uniform-mesh construction on `device`."""
+def build(ne: int, np_: int = 4, basis_name: str = "GllNodal", *,
+          device="cuda", dtype=F64, tq_order: int = 18) -> CubedSphereMesh:
+    """Cached uniform-mesh construction on `device` (the current CUDA
+    device unless the CPU is asked for), float tables in `dtype`."""
     dev = resolve_device(device)
-    key = (ne, np_, basis_name, tq_order, str(dev))
+    key = (ne, np_, basis_name, tq_order, str(dev), dtype)
     if key not in _BUILD_CACHE:
-        tables = _build_tables(ne, np_, basis_name, tq_order)
-        tables["basis_name"] = basis_name
-        _BUILD_CACHE[key] = from_numpy(tables, dev)
+        _BUILD_CACHE[key] = from_numpy(
+            _build_tables(ne, np_, basis_name, tq_order), dev, dtype)
     return _BUILD_CACHE[key]
 
 
+@functools.lru_cache(maxsize=None)
 def _build_tables(ne, np_, basis_name, tq_order):
     """The mesh tables as numpy arrays (the arithmetic of compose_tpu's
-    _build for uniform meshes)."""
+    _build for uniform meshes), shared by every device and dtype."""
     ncell = 6 * ne * ne
     np2 = np_ * np_
     bas = basis_mod.create(basis_name, np_)
@@ -203,7 +208,8 @@ def _build_tables(ne, np_, basis_name, tq_order):
     dgbfi_sphere = _dgbfi_sphere(tc, torch.tensor(bary, dtype=F64),
                                  torch.tensor(qw, dtype=F64),
                                  np_).reshape(ncell, np2).numpy()
-    return dict(ne=ne, np_=np_, corners=corners, cell_nodes_xyz=nodes,
+    return dict(ne=ne, np_=np_, basis_name=basis_name, corners=corners,
+                cell_nodes_xyz=nodes,
                 dgll2cgll=dgll2cgll, cgll_xyz=cgll_xyz, cgll_rep=first_idx,
                 c2d_idx=c2d_idx, c2d_mask=c2d_mask, jac_node=jac_node,
                 dgbfi_gll=dgbfi_gll, dgbfi_sphere=dgbfi_sphere,

@@ -17,6 +17,7 @@ def _clip(x, lo, hi):
 
 
 def calc_r_tol(b, a, y):
+    """Residual tolerance 10 eps max(|b|, max |a y|), eps the f64 one."""
     ab = torch.maximum(torch.abs(b), torch.amax(torch.abs(a * y), dim=-1))
     return 1e1 * _EPS * ab
 
@@ -44,8 +45,9 @@ def solve_1eq_bc_qp(w, a, b, xlo, xhi, y, max_its: int = 50):
     """Single-equality bound-constrained QP by bisection-safeguarded Newton
     on the Lagrange multiplier. Returns (x, info): info 1 solved, -1
     infeasible, 0 input already satisfied the constraints. The loop stops
-    when every lane has converged: one host sync per iteration (this is the
-    rare branch of limit_density)."""
+    when every lane has converged: one host sync per iteration. The
+    residual tolerance keeps the JAX package's f64 eps in every dtype, so
+    in f32 no lane converges and the loop runs all `max_its`."""
     r_tol = calc_r_tol(b, a, y)
     r_lo = torch.sum(a * xlo, dim=-1) - b
     r_hi = torch.sum(a * xhi, dim=-1) - b

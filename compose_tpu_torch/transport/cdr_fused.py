@@ -4,17 +4,18 @@ redistribution over cells) and K2 `limit_caas` (cell-local CAAS limiter).
 Same module name as the TPU kernels' home (compose_tpu/transport/
 cdr_fused.py). The TPU kernels worked on double-float (hi, lo) f32 pairs
 because the TPU has no f64; the H100 has native f64, so both kernels and
-their plain versions compute in f64 and the pair glue is gone.
+their plain versions compute in the tensors' own type (f64, or f32 on the
+single-precision route) and the pair glue is gone.
 
 Each wrapper takes the plain PyTorch version for a CPU tensor and launches
-the CUDA kernel (compose_tpu_torch/csrc) for a CUDA tensor; it never falls
-back. `glbl_caas.launches` / `limit_caas.launches` count kernel launches.
+the CUDA kernel (compose_tpu_torch/csrc) of the tensors' dtype for a CUDA
+tensor (`glbl_caas_f64`/`_f32`, `limit_caas_f64`/`_f32`); it never falls
+back. `_native.KERNELS[name].launches` counts each kernel's launches.
 """
 
 import torch
 
 from .. import _native
-from ..config import F64
 from ..ops import local_qp
 from ..ops.reduce import bfb_sum
 
@@ -40,32 +41,30 @@ def glbl_caas_plain(Q_min, Q_mass, Q_max, extra_mass):
 
 
 def glbl_caas(Q_min, Q_mass, Q_max, extra_mass):
-    """K1. Q_*: (nt, ncell) or (ncell,) f64; extra_mass: (nt,) or scalar.
-    CPU tensors: the plain version. CUDA tensors: the kernel
-    (csrc/glbl_caas.cu), bitwise equal to the plain version."""
+    """K1. Q_*: (nt, ncell) or (ncell,), f64 or f32; extra_mass: (nt,) or
+    scalar. CPU tensors: the plain version. CUDA tensors: the kernel
+    (csrc/glbl_caas.cu) of their dtype, bitwise equal to the plain
+    version."""
     if not Q_mass.is_cuda:
         return glbl_caas_plain(Q_min, Q_mass, Q_max, extra_mass)
+    dt = Q_mass.dtype
     squeeze = Q_mass.dim() == 1
     lead = Q_mass.shape[:-1]
     ncell = Q_mass.shape[-1]
     qmin, qmass, qmax = (x.reshape(-1, ncell).contiguous()
                          for x in (Q_min, Q_mass, Q_max))
     nt = qmass.shape[0]
-    extra = torch.as_tensor(extra_mass, dtype=F64, device=Q_mass.device)
+    extra = torch.as_tensor(extra_mass, dtype=dt, device=Q_mass.device)
     extra = extra.expand(lead).reshape(nt).contiguous()
     out = torch.empty_like(qmass)
-    ptrs = [_native.require(x, n, F64, (nt, ncell)) for x, n in
+    ptrs = [_native.require(x, n, dt, (nt, ncell)) for x, n in
             ((qmin, "Q_min"), (qmass, "Q_mass"), (qmax, "Q_max"),
              (out, "out"))]
-    ex = _native.require(extra, "extra_mass", F64, (nt,))
-    _native.check(_native.lib().glbl_caas_f64(
-        ptrs[0], ptrs[1], ptrs[2], ex, ptrs[3], nt, ncell,
-        _native.stream_of(qmass)), "glbl_caas")
-    glbl_caas.launches += 1
+    ex = _native.require(extra, "extra_mass", dt, (nt,))
+    _native.kernel("glbl_caas", dt)(ptrs[0], ptrs[1], ptrs[2], ex, ptrs[3],
+                                    nt, ncell,
+                                    stream=_native.stream_of(qmass))
     return out[0] if squeeze else out.reshape(lead + (ncell,))
-
-
-glbl_caas.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -85,24 +84,22 @@ def limit_caas_plain(rhom, rho, Q, q_min, q_max, b):
 
 
 def limit_caas(rhom, rho, Q, q_min, q_max, b):
-    """K2. Shapes as limit_caas_plain; np2 must be 16 for the kernel. CPU
-    tensors: the plain version. CUDA tensors: the kernel
-    (csrc/limit_caas.cu), bitwise equal to the plain version."""
+    """K2. Shapes as limit_caas_plain, f64 or f32; np2 must be 16 for the
+    kernel. CPU tensors: the plain version. CUDA tensors: the kernel
+    (csrc/limit_caas.cu) of their dtype, bitwise equal to the plain
+    version."""
     if not Q.is_cuda:
         return limit_caas_plain(rhom, rho, Q, q_min, q_max, b)
     nt, ncell, np2 = Q.shape
     if np2 != 16:
         raise NotImplementedError(f"limit_caas kernel: np2={np2} (needs 16)")
+    dt = Q.dtype
     out = torch.empty_like(Q)
-    args = [_native.require(x, n, F64, s) for x, n, s in (
+    args = [_native.require(x, n, dt, s) for x, n, s in (
         (rhom, "rhom", (ncell, np2)), (rho, "rho", (ncell, np2)),
         (Q, "Q", Q.shape), (q_min, "q_min", Q.shape),
         (q_max, "q_max", Q.shape), (b, "b", (nt, ncell)),
         (out, "out", Q.shape))]
-    _native.check(_native.lib().limit_caas_f64(
-        *args, nt, ncell, _native.stream_of(Q)), "limit_caas")
-    limit_caas.launches += 1
+    _native.kernel("limit_caas", dt)(*args, nt, ncell,
+                                     stream=_native.stream_of(Q))
     return out
-
-
-limit_caas.launches = 0

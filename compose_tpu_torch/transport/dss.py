@@ -1,5 +1,5 @@
 """Direct stiffness summation, gather formulation (compose_tpu.transport.dss)
-and K3 `dss_q`, the mixing-ratio DSS merge.
+and `dss_q`, the mixing-ratio DSS merge: K3 in f64, K4 in f32.
 
 Fields carry the DGLL slot axis last, (rows, ndgll). A continuous node's
 coincident slots (<= 4) are the columns of mesh.c2d_idx, valid where
@@ -9,14 +9,15 @@ writes the result back to every slot. Tracers use w = F * rho
 (`dss_q_gather_t`); a density field uses w = F (`dss_gather_t`).
 
 The wrapper takes the plain PyTorch version for a CPU tensor and launches
-the CUDA kernel (csrc/dss_q.cu) for a CUDA tensor; `dss_q.launches` counts
-kernel launches. Sums run in the fixed order ((s0 + s1) + s2) + s3 in both.
+the CUDA kernel (csrc/dss_q.cu) of the tensors' dtype for a CUDA tensor:
+K3 `dss_q_f64`, or K4 `dss_q_f32` on the single-precision route.
+`_native.KERNELS[name].launches` counts each kernel's launches. Sums run
+in the fixed order ((s0 + s1) + s2) + s3 in both.
 """
 
 import torch
 
 from .. import _native
-from ..config import F64
 
 
 def _sum4(x):
@@ -41,30 +42,28 @@ def dss_q_plain(w, F, q, c2d_idx, c2d_mask, d2c_map):
 
 
 def dss_q(w, F, q, c2d_idx, c2d_mask, d2c_map, c2d_idx32=None):
-    """K3. Arguments as dss_q_plain; the kernel takes the inverse map as
-    int32 (`c2d_idx32`, derived from c2d_idx if not given). CPU tensors:
-    the plain version. CUDA tensors: the kernel, one thread per (tracer,
-    node), writing every valid slot (the d2c injection is implicit)."""
+    """K3 (f64) and K4 (f32). Arguments as dss_q_plain; the kernel takes
+    the inverse map as int32 (`c2d_idx32`, derived from c2d_idx if not
+    given). CPU tensors: the plain version. CUDA tensors: the kernel of
+    their dtype, one thread per (tracer, node), writing every valid slot
+    (the d2c injection is implicit)."""
     if not q.is_cuda:
         return dss_q_plain(w, F, q, c2d_idx, c2d_mask, d2c_map)
     nt, ndgll = q.shape
     cnn = c2d_idx.shape[0]
+    dt = q.dtype
     if c2d_idx32 is None:
         c2d_idx32 = c2d_idx.to(torch.int32)
     out = torch.empty_like(q)
-    args = [_native.require(w, "w", F64, (ndgll,)),
-            _native.require(F, "F", F64, (ndgll,)),
-            _native.require(q, "q", F64, (nt, ndgll)),
+    args = [_native.require(w, "w", dt, (ndgll,)),
+            _native.require(F, "F", dt, (ndgll,)),
+            _native.require(q, "q", dt, (nt, ndgll)),
             _native.require(c2d_idx32, "c2d_idx", torch.int32, (cnn, 4)),
             _native.require(c2d_mask, "c2d_mask", torch.bool, (cnn, 4)),
-            _native.require(out, "out", F64, (nt, ndgll))]
-    _native.check(_native.lib().dss_q_f64(
-        *args, nt, cnn, ndgll, _native.stream_of(q)), "dss_q")
-    dss_q.launches += 1
+            _native.require(out, "out", dt, (nt, ndgll))]
+    _native.kernel("dss_q", dt)(*args, nt, cnn, ndgll,
+                                stream=_native.stream_of(q))
     return out
-
-
-dss_q.launches = 0
 
 
 def dss_q_gather_t(rho_dg, q_dg, d2c_map, c2d_idx, c2d_mask, dgbfi,

@@ -1,5 +1,6 @@
 """Interpolation semi-Lagrangian (ISL) transport step
-(compose_tpu.transport.isl), for the pisl CAAS/CAAS configuration.
+(compose_tpu.transport.isl), method pisl, filters qlt | mn2 | caas and
+limiters mn2 | caas.
 
 One step:
   1. departure points: backward DoPri5 trajectories of the CGLL nodes,
@@ -7,15 +8,20 @@ One step:
      coordinates, and the GllNodal np4 weights;
   2. interpolation of rho and the tracers at the departure points, and the
      departure/arrival Jacobian ratio for rho;
-  3. rho CDR: global CAAS (K1), positivity limiter, rho DSS (K3);
-  4. tracer CDR: per-cell records, global CAAS (K1), cell-local CAAS (K2);
-  5. mixing-ratio DSS (K3).
+  3. rho CDR: global redistribution (K1 for caas), positivity limiter, rho
+     DSS (K3, or K4 in f32);
+  4. tracer CDR: per-cell records, global redistribution (K1 for caas, the
+     QLT tree or the mn2 QP), cell-local limiter (K2 for caas, the mn2 QP);
+  5. mixing-ratio DSS (K3, or K4 in f32).
 Step 3-5 follow the JAX package's general CDR branch (isl.py:563-711).
 
-Two dtype modes: all f64, or f32 geometry with f32 interpolation, whose
-invariants are enforced by the f64 CDR. Other configurations raise
-NotImplementedError. Tracers are a dense leading axis; rho is (ncell,
-np2), q is (nt, ncell, np2), both f64 on the mesh's device.
+The working float type is the mesh's: f64, or f32 on the single-precision
+route (the JAX package with x64 off, where every f64 is f32). In f64 the
+geometry and interpolation may also run in f32 (geom_dtype = interp_dtype
+= "f32"), their invariants then enforced by the f64 CDR. Other
+configurations raise NotImplementedError. Tracers are a dense leading
+axis; rho is (ncell, np2), q is (nt, ncell, np2), both in the mesh's dtype
+on its device.
 """
 
 import dataclasses
@@ -24,7 +30,7 @@ import time
 import torch
 
 from .. import basis as basis_mod
-from ..config import F32, F64
+from ..config import F32
 from ..mesh import cubed_sphere
 from ..ops import sqr
 from ..ops.reduce import bfb_sum_cells
@@ -36,8 +42,8 @@ class IslConfig:
     ne: int
     np_: int = 4
     basis: str = "GllNodal"
-    filter: str = "caas"
-    limiter: str = "caas"
+    filter: str = "qlt"
+    limiter: str = "mn2"
     rho_isl: bool = True
     nsub: int = 8
     dmc: str = "f"
@@ -50,17 +56,17 @@ class IslConfig:
     interp_dtype: str = "f64"
 
     def check_ported(self):
-        """Raise NotImplementedError unless this is the ported pisl
-        CAAS/CAAS configuration."""
-        ported = dict(np_=4, basis="GllNodal", filter="caas",
-                      limiter="caas", rho_isl=True, dmc="f",
-                      positive_only=False, fitext=False, timeint="exact",
-                      rotate=None)
+        """Raise NotImplementedError unless this is a ported pisl
+        configuration."""
+        ported = dict(np_=(4,), basis=("GllNodal",),
+                      filter=("qlt", "mn2", "caas"), limiter=("mn2", "caas"),
+                      rho_isl=(True,), dmc=("f",), positive_only=(False,),
+                      fitext=(False,), timeint=("exact",), rotate=(None,))
         for k, v in ported.items():
-            if getattr(self, k) != v:
+            if getattr(self, k) not in v:
                 raise NotImplementedError(
                     f"IslConfig.{k}={getattr(self, k)!r} is not ported "
-                    f"(only {v!r})")
+                    f"(only {' | '.join(map(repr, v))})")
         if (self.geom_dtype, self.interp_dtype) not in (("f64", "f64"),
                                                         ("f32", "f32")):
             raise NotImplementedError(
@@ -80,10 +86,11 @@ class IslTransport:
         self.mesh = mesh
         self.config = config
         self.wind = wind
+        self.real = mesh.dtype
         dev = mesh.device
         self.basis = basis_mod.create(config.basis, config.np_)
         gll = basis_mod.GLL(config.np_)
-        self.deriv_at_nodes = gll.eval_deriv(gll.x).to(dev)  # (node, bf)
+        self.deriv_at_nodes = gll.eval_deriv(gll.x).to(dev)  # (node, bf) f64
         self.F = mesh.dgbfi_gll
         self.Ff = self.F.reshape(-1).contiguous()
         self.d2c_map = mesh.dgll2cgll.reshape(-1)
@@ -159,14 +166,16 @@ class IslTransport:
         return self._jacobian_cells(pc)
 
     def _dss(self, field):
-        """DSS of a (ncell, np2) field with the static weights F (K3)."""
+        """DSS of a (ncell, np2) field with the static weights F (K3 in
+        f64, K4 in f32)."""
         out = dss.dss_gather_t(field.reshape(1, -1), self.d2c_map,
                                self.mesh.c2d_idx, self.mesh.c2d_mask,
                                self.Ff, self.c2d_idx32)
         return out.reshape(field.shape)
 
     def _dss_q(self, rho_dg, q):
-        """Mixing-ratio DSS of q (nt, ncell, np2) weighted by F rho (K3)."""
+        """Mixing-ratio DSS of q (nt, ncell, np2) weighted by F rho (K3 in
+        f64, K4 in f32)."""
         out = dss.dss_q_gather_t(rho_dg.reshape(-1), q.reshape(q.shape[0], -1),
                                  self.d2c_map, self.mesh.c2d_idx,
                                  self.mesh.c2d_mask, self.Ff, self.c2d_idx32)
@@ -175,21 +184,23 @@ class IslTransport:
     # ------------------------------------------------------------------
     def _interp_phase(self, rho, q, dep, ci, w):
         """Density and tracers at the departure points, on the DGLL slots:
-        (rho_tgt, q_tgt) f64, and each slot's departure cell."""
+        (rho_tgt, q_tgt) in the working type, and each slot's departure
+        cell."""
         m = self.mesh
         nt = q.shape[0]
         if self.config.interp_dtype == "f32":
             # f32 geometry gives f32 weights; rho and the tracers are
             # gathered and contracted in f32, the Jacobian ratio in f32.
-            # Mass and bounds are restored in f64 by the CDR.
+            # Mass and bounds are restored in the working type by the CDR.
             w32 = w.to(F32)
             ri = self._interp(rho.to(F32), ci, w32)          # (cnn,)
             qi = self._interp(q.to(F32), ci, w32)            # (nt, cnn)
             ratio32 = self._jacobian_departure(dep).to(F32) \
                 / m.jac_node.to(F32)
             rho_tgt = (ratio32 * ri[self.d2c_map].reshape(
-                m.ncell, m.np2)).to(F64)
-            q_tgt = qi[:, self.d2c_map].to(F64).reshape(nt, m.ncell, m.np2)
+                m.ncell, m.np2)).to(self.real)
+            q_tgt = qi[:, self.d2c_map].to(self.real).reshape(nt, m.ncell,
+                                                              m.np2)
         else:
             rho_interp = self._interp(rho, ci, w)
             ratio = self._jacobian_departure(dep) / m.jac_node
@@ -200,8 +211,9 @@ class IslTransport:
         return rho_tgt, q_tgt, ci[self.d2c_map].reshape(m.ncell, m.np2)
 
     def _rho_cdr(self, rho, rho_tgt):
-        """Global CAAS (K1) on the cell-mean density bounds [0, 2], the
-        positivity limiter, then the density DSS (K3)."""
+        """Global redistribution (K1 for caas) on the cell-mean density
+        bounds [0, 2], the positivity limiter, then the density DSS (K3 or
+        K4)."""
         F = self.F
         mm = bfb_sum_cells(torch.stack([F * rho, F * rho_tgt]))
         rho_mass, R_min, R_mass, R_max = spf.record(
@@ -213,8 +225,9 @@ class IslTransport:
         return self._dss(rho_tgt)
 
     def _tracer_cdr(self, rho, q, rho_tgt, q_tgt, node_src_cell):
-        """Per-cell records, global CAAS (K1), cell-local CAAS (K2).
-        Returns mixing ratios, zero-density nodes at their lower bound."""
+        """Per-cell records, global redistribution (K1 for caas), the
+        cell-local limiter (K2 for caas). Returns mixing ratios,
+        zero-density nodes at their lower bound."""
         F = self.F
         Q_tgt = q_tgt * rho_tgt[None]
         QQ = bfb_sum_cells(torch.stack([F[None] * q * rho[None],

@@ -1,5 +1,6 @@
 """Cell-local limiters (compose_tpu.transport.limiter): the density
-positivity limiter, and the CAAS tracer limiter (kernel K2).
+positivity limiter, and the tracer limiters caas (kernel K2) and mn2 (the
+bound-constrained QP of ops/local_qp).
 """
 
 import torch
@@ -36,18 +37,33 @@ def limit_density(F, rho, extra_mass):
 
 def limit_tracer(F, rho, Q, q_min, q_max, Qm_extra, limiter: str = "caas",
                  precomp=None, return_q: bool = False):
-    """Bounds-preserving CAAS tracer limiter, batched over tracers.
+    """Bounds-preserving tracer limiter, batched over tracers: per cell
+
+        min sum_i w_i (q_i - y_i)^2  s.t.  sum_i F_i rho_i q_i = Qm_tot,
+                                           q_min_i <= q_i <= q_max_i
+
+    with w = a = F rho, y = Q / rho, Qm_tot = sum(F Q) + Qm_extra; 'caas'
+    solves it by clip-and-assured-sum (K2), 'mn2' by the Newton QP.
 
     F, rho: (ncell, np2); Q, q_min, q_max: (nt, ncell, np2); Qm_extra:
     (nt, ncell). `precomp` = (rhom, Qm_tot, Qm_min, Qm_max) as the ISL CDR
     already has them. Returns the mixing ratios if `return_q`, else Q; nodes
     with rho == 0 take q_min (the ISL CDR's zero-density rule)."""
-    if limiter != "caas":
+    if limiter not in ("caas", "mn2"):
         raise NotImplementedError(f"limiter '{limiter}' is not ported")
     if precomp is not None:
         rhom, Qm_tot = precomp[0], precomp[1]
     else:
         rhom = rho * F
         Qm_tot = torch.sum(Q * F, dim=-1) + Qm_extra
-    x = limit_caas(rhom, rho, Q, q_min, q_max, Qm_tot)
+    if limiter == "caas":
+        x = limit_caas(rhom, rho, Q, q_min, q_max, Qm_tot)
+    else:
+        # Zero-density nodes get a vanishing but nonzero QP weight so that
+        # w/a and a/w stay finite. As in the JAX package, 1e-300 rounds to
+        # 0 in f32, where a zero-density node then makes its cell NaN.
+        a = torch.clamp_min(rhom, 1e-300)
+        y = Q * (1.0 / torch.where(rho == 0, 1.0, rho))
+        x, _ = local_qp.solve_1eq_bc_qp(a, a, Qm_tot, q_min, q_max, y)
+        x = torch.where(rho == 0, q_min, x)
     return x if return_q else x * rho

@@ -1,7 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card
-(bitwise; --fmad=false keeps the kernels' arithmetic that of the eager
-ops). Marked `cuda`: they skip on a machine without a GPU. On the GPU
-machine: python -m pytest tests/test_torch_cuda.py -q
+"""The port's CUDA kernels, f64 and f32, against their plain PyTorch
+versions on the card (bitwise; --fmad=false keeps the kernels' arithmetic
+that of the eager ops). Marked `cuda`: they skip on a machine without a
+GPU. On the GPU machine: python -m pytest tests/test_torch_cuda.py -q
 (chip_smoke.py runs the same comparisons at the flagship shapes).
 """
 
@@ -9,10 +9,12 @@ import numpy as np
 import pytest
 import torch
 
+from compose_tpu_torch import _native
 from compose_tpu_torch.mesh import cubed_sphere
 from compose_tpu_torch.transport import cdr_fused, dss
 
 pytestmark = pytest.mark.cuda
+F32 = torch.float32
 
 
 @pytest.fixture
@@ -22,25 +24,35 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _t(x, dev):
-    return torch.tensor(x, dtype=torch.float64, device=dev)
+def _t(x, dev, dtype=torch.float64):
+    return torch.tensor(x, dtype=dtype, device=dev)
 
 
-@pytest.mark.parametrize("nt,ncell", [(1, 96), (3, 96), (40, 5400), (2, 1)])
-def test_glbl_caas_kernel(dev, nt, ncell):
+def _glbl_caas_case(dev, nt, ncell, dtype):
     rng = np.random.default_rng(ncell)
     mn = rng.uniform(0, 1, (nt, ncell))
     mx = mn + rng.uniform(0, 1, (nt, ncell))
     ms = rng.uniform(-0.5, 2.5, (nt, ncell))
     ex = rng.uniform(-1, 1, nt)
-    args = [_t(a, dev) for a in (mn, ms, mx, ex)]
-    before = cdr_fused.glbl_caas.launches
+    args = [_t(a, dev, dtype) for a in (mn, ms, mx, ex)]
+    k = _native.kernel("glbl_caas", dtype)
+    before = k.launches
     out = cdr_fused.glbl_caas(*args)
-    assert cdr_fused.glbl_caas.launches == before + 1
+    assert k.launches == before + 1 and out.dtype == dtype
     assert torch.equal(out, cdr_fused.glbl_caas_plain(*args))
 
 
-def test_limit_caas_kernel(dev):
+@pytest.mark.parametrize("nt,ncell", [(1, 96), (3, 96), (40, 5400), (2, 1)])
+def test_glbl_caas_kernel(dev, nt, ncell):
+    _glbl_caas_case(dev, nt, ncell, torch.float64)
+
+
+@pytest.mark.parametrize("nt,ncell", [(1, 96), (3, 96), (40, 5400), (2, 1)])
+def test_glbl_caas_kernel_f32(dev, nt, ncell):
+    _glbl_caas_case(dev, nt, ncell, F32)
+
+
+def _limit_caas_case(dev, dtype):
     rng = np.random.default_rng(1)
     nt, ncell = 5, 216
     rho = rng.uniform(0.5, 1.5, (ncell, 16))
@@ -50,20 +62,45 @@ def test_limit_caas_kernel(dev):
     qmax = qmin + rng.uniform(0, 0.5, (nt, ncell, 16))
     Q = rng.uniform(-0.2, 1.2, (nt, ncell, 16)) * rho
     b = (rhom * rng.uniform(-0.1, 1.1, (nt, ncell, 16))).sum(-1)
-    args = [_t(a, dev) for a in (rhom, rho, Q, qmin, qmax, b)]
+    args = [_t(a, dev, dtype) for a in (rhom, rho, Q, qmin, qmax, b)]
+    k = _native.kernel("limit_caas", dtype)
+    before = k.launches
     out = cdr_fused.limit_caas(*args)
+    assert k.launches == before + 1 and out.dtype == dtype
     assert torch.equal(out, cdr_fused.limit_caas_plain(*args))
     assert bool((out >= args[3]).all()) and bool((out <= args[4]).all())
 
 
-@pytest.mark.parametrize("nt", [1, 4])
-def test_dss_q_kernel(dev, nt):
-    mesh = cubed_sphere.build(4, 4, device=dev)
+def test_limit_caas_kernel(dev):
+    _limit_caas_case(dev, torch.float64)
+
+
+def test_limit_caas_kernel_f32(dev):
+    _limit_caas_case(dev, F32)
+
+
+def _dss_q_case(dev, nt, dtype):
+    mesh = cubed_sphere.build(4, 4, device=dev, dtype=dtype)
     rng = np.random.default_rng(nt)
     ndg = mesh.ncell * mesh.np2
     rho = rng.uniform(0.5, 1.5, ndg)
     rho[rng.random(ndg) < 0.2] = 0.0
     F = mesh.dgbfi_gll.reshape(-1).contiguous()
-    args = (F * _t(rho, dev), F, _t(rng.uniform(0, 1, (nt, ndg)), dev),
+    args = (F * _t(rho, dev, dtype), F,
+            _t(rng.uniform(0, 1, (nt, ndg)), dev, dtype),
             mesh.c2d_idx, mesh.c2d_mask, mesh.dgll2cgll.reshape(-1))
-    assert torch.equal(dss.dss_q(*args), dss.dss_q_plain(*args))
+    k = _native.kernel("dss_q", dtype)
+    before = k.launches
+    out = dss.dss_q(*args)
+    assert k.launches == before + 1 and out.dtype == dtype
+    assert torch.equal(out, dss.dss_q_plain(*args))
+
+
+@pytest.mark.parametrize("nt", [1, 4])
+def test_dss_q_kernel(dev, nt):
+    _dss_q_case(dev, nt, torch.float64)
+
+
+@pytest.mark.parametrize("nt", [1, 4])
+def test_dss_q_kernel_f32(dev, nt):
+    _dss_q_case(dev, nt, F32)

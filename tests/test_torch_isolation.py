@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither jax nor compose_tpu, builds its
-CUDA kernels only when one is launched, and never moves to another device
-than the one asked for."""
+CUDA kernels only when one is launched, runs on the card unless the CPU is
+asked for, and never moves to another device than the one asked for."""
 
 import pathlib
 import re
@@ -21,21 +21,22 @@ import torch
 import compose_tpu_torch
 from compose_tpu_torch import _native, driver
 from compose_tpu_torch.mesh import cubed_sphere
-from compose_tpu_torch.transport import cdr_fused, dss, gallery
+from compose_tpu_torch.transport import gallery
 from compose_tpu_torch.transport.isl import IslConfig, IslTransport
-mesh = cubed_sphere.build(2, 4, device="cpu")
-model = IslTransport(mesh, gallery.create_wind("divergent"),
-                     IslConfig(ne=2, nsub=1))
-rho = torch.ones((mesh.ncell, mesh.np2), dtype=torch.float64)
-q = driver.init_tracers(mesh, ["gaussianhills"])
-rho, q = model.step(rho, q, 0.0, 86400.0)
-assert bool(torch.isfinite(q).all()) and q.shape == (1, mesh.ncell, 16)
+for dtype in (torch.float64, torch.float32):
+    mesh = cubed_sphere.build(2, 4, device="cpu", dtype=dtype)
+    model = IslTransport(mesh, gallery.create_wind("divergent"),
+                         IslConfig(ne=2, nsub=1))
+    rho = torch.ones((mesh.ncell, mesh.np2), dtype=dtype)
+    q = driver.init_tracers(mesh, ["gaussianhills"])
+    rho, q = model.step(rho, q, 0.0, 86400.0)
+    assert bool(torch.isfinite(q).all()) and q.shape == (1, mesh.ncell, 16)
+    assert q.dtype == rho.dtype == dtype
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "compose_tpu")]
 assert not bad, bad
 assert _native.lib.cache_info().currsize == 0, "kernels were built"
-assert cdr_fused.glbl_caas.launches == cdr_fused.limit_caas.launches \
-    == dss.dss_q.launches == 0
+assert all(k.launches == 0 for k in _native.KERNELS.values())
 print("STANDALONE_OK")
 """
 
@@ -66,8 +67,13 @@ def test_cuda_device_raises_without_cuda(monkeypatch):
         cubed_sphere.build(2, 4, device="cuda")
     with pytest.raises(RuntimeError):
         driver.run(ne=2, nsteps=1, device="cuda", verbose=False)
-    with pytest.raises(ValueError):
+    # Entry points default to the card.
+    with pytest.raises(RuntimeError):
         config.resolve_device(None)
+    with pytest.raises(RuntimeError):
+        cubed_sphere.build(2, 4)
+    with pytest.raises(RuntimeError):
+        driver.run(ne=2, nsteps=1, verbose=False)
     assert config.resolve_device("cpu") == torch.device("cpu")
 
 

@@ -1,16 +1,18 @@
-"""The slice as a whole: the port's ISL step (pisl, CAAS/CAAS) and driver
-against compose_tpu on the CPU at ne4.
+"""The slice as a whole: the port's ISL step (pisl; CAAS/CAAS, and the
+default CDR QLT/mn2 with caas/mn2 and mn2/mn2) and driver against
+compose_tpu on the CPU at ne4.
 
 - all-f64: pointwise within 1e-12 of the JAX step after each of 3 steps
   (both are f64; they differ by XLA/torch summation order and libm, plus
   the JAX CPU DSS taking FaceDss's roll path, which agrees with the gather
-  formulation to roundoff; ~7e-14 seen);
+  formulation to roundoff; ~7e-14 seen), for every filter/limiter pair;
 - f32 geometry + interpolation: the invariants of the f64 CDR (mass and
   bounds exactly as the f64 route), and a solution-level bound of 1e-4
   (f32 trajectories round differently in XLA and torch, and the weights
   carry that noise, ~1e-5 seen);
 - driver.run at test_smoke_caas_ne4's and test_interp_f32_invariants'
-  configs, and the Observer invariants of both packages.
+  configs and with its defaults, and the Observer invariants of both
+  packages.
 """
 
 import numpy as np
@@ -36,12 +38,12 @@ NSTEPS = 3
 DT = 86400.0 * 12 / NSTEPS
 
 
-def _run_both(dtype):
-    """3 steps of both steps from the same state; yields per-step
-    (rho_j, q_j, rho_t, q_t, F) as numpy."""
+def _run_both(dtype, filter="caas", limiter="caas"):
+    """3 steps of both steps from the same state; returns the per-step
+    (rho_j, q_j, rho_t, q_t) as numpy, and F."""
     mj, mt = meshes(4)
-    kw = dict(ne=4, filter="caas", limiter="caas", nsub=2, geom_dtype=dtype,
-              interp_dtype=dtype)
+    kw = dict(ne=4, filter=filter, limiter=limiter, nsub=2,
+              geom_dtype=dtype, interp_dtype=dtype)
     sj = IslJ(mj, gallery_jax.create_wind("divergent"), CfgJ(**kw))
     st = IslT(mt, gallery_torch.create_wind("divergent"), CfgT(**kw))
     qj = driver_jax.init_tracers(mj, list(ICS4))
@@ -89,6 +91,19 @@ def test_step_f64_matches_jax(runs):
         assert mass_err < 1e-12 and bounds_err < 5e-13
 
 
+@pytest.mark.parametrize("filter,limiter", [("qlt", "mn2"), ("caas", "mn2"),
+                                            ("mn2", "mn2")])
+def test_step_cdr_f64_matches_jax(filter, limiter):
+    states, F = _run_both("f64", filter, limiter)
+    for rj, qj, rt, qt in states[1:]:
+        assert np.all(np.isfinite(qt)) and np.all(np.isfinite(rt))
+        assert np.abs(rj - rt).max() <= 1e-12
+        assert np.abs(qj - qt).max() <= 1e-12
+    for k in (0, 2):
+        mass_err, bounds_err = _invariants(states, F, k)
+        assert mass_err < 1e-12 and bounds_err < 5e-13
+
+
 def test_step_f32_route_invariants(runs):
     states, F = runs["f32"]
     mass_err, bounds_err = _invariants(states, F, 2)
@@ -115,6 +130,17 @@ def test_driver_smoke_caas_ne4():
     assert abs(out.l2_err - ref.l2_err) <= 1e-12
     assert abs(out.min_e - ref.min_e) <= 1e-12
     assert abs(out.max_e - ref.max_e) <= 1e-12
+
+
+def test_driver_defaults_match_jax():
+    # Both packages' defaults are the pisl QLT filter and mn2 limiter.
+    kw = dict(ne=4, nsteps=3, nsub=2)
+    out = driver_torch.run(device="cpu", **kw)
+    ref = driver_jax.run(**kw)
+    assert abs(out.l2_err - ref.l2_err) <= 1e-12
+    assert abs(out.min_e - ref.min_e) <= 1e-12
+    assert abs(out.max_e - ref.max_e) <= 1e-12
+    assert out.max_step_mass_err < 1e-12 and out.max_step_bounds_err < 5e-13
 
 
 def test_driver_interp_f32_invariants():
@@ -154,8 +180,9 @@ def test_observer_invariants(runs):
 
 def test_unported_config_raises():
     mj, mt = meshes(4)
-    for bad in (dict(filter="qlt"), dict(limiter="mn2"), dict(rho_isl=False),
-                dict(geom_dtype="f32"), dict(timeint="line")):
+    for bad in (dict(filter="caas-node"), dict(limiter="caags"),
+                dict(rho_isl=False), dict(geom_dtype="f32"),
+                dict(timeint="line")):
         with pytest.raises(NotImplementedError):
             IslT(mt, gallery_torch.create_wind("divergent"),
                  CfgT(ne=4, **bad))
