@@ -1,15 +1,19 @@
 """GPU smoke run of the PyTorch + CUDA port (compose_tpu_torch) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py --kernels  # phases 0-2 only (no result lines)
 
 Phases (any failure raises, so the exit code is nonzero):
   0. device: CUDA is required; print the card's name and power limit;
   1. build the CUDA kernels (nvcc, sm_90a, one process per source) from
      compose_tpu_torch/csrc;
   2. each kernel, f64 (K1-K3) and f32 (K4 and K1/K2 at f32), against its
-     plain PyTorch version on the card, at the flagship shapes, with seeded
-     inputs that include infeasible cells and zero-density nodes: bitwise
-     equality, exact bounds, median times;
+     plain PyTorch version on the card, at each shape the ne30 step
+     launches it at, with seeded inputs that include infeasible cells and
+     zero-density nodes: bitwise equality, exact bounds; per shape the
+     device time (a CUDA graph of 50 launches), the call time (wrapper and
+     kernel, CUDA events around one call), the plain version's call time
+     and the bound;
   3. small references (ne4, 4 tracers, 3 steps: caas/caas and qlt/mn2 in
      f64, qlt/mn2 in f32), the card against the CPU; then the paths at
      ne30, np4, 40 tracers, each driven through IslTransport.step with the
@@ -59,20 +63,47 @@ def log(*a):
     print(*a, flush=True)
 
 
+def _events_ms(fn):
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e)
+
+
 def cuda_ms(fn, reps=25):
-    """Median time of fn() in ms over `reps` runs, from CUDA events."""
+    """Median time of one fn() call in ms over `reps` calls, from CUDA
+    events around the call: the host work of a Python wrapper, during which
+    the device idles, is inside it."""
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
+    return statistics.median(_events_ms(fn) for _ in range(reps))
+
+
+def device_ms(fn, n=50, reps=5):
+    """Device time of one fn() in ms: CUDA events around the replay of a
+    CUDA graph that captured `n` calls, divided by `n`, median of `reps`
+    replays. The replay launches the captured kernels back to back without
+    the wrappers' host work; inputs stay warm in L2."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
         fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    return statistics.median(times)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = statistics.median(_events_ms(graph.replay) / n for _ in range(reps))
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 def same(a, b, what):
@@ -96,7 +127,10 @@ def bound(tensors, out, flops, dtype):
 
 def phase_kernels(dev, stats, dtype, ne=30):
     """K1, K2 and the DSS merge (K3 in f64, K4 in f32) of `dtype` against
-    their plain versions at the flagship shapes."""
+    their plain versions at each shape the ne30 step launches them at:
+    bitwise equality and bounds, then per shape the device time (CUDA
+    graph), the call time (wrapper + kernel), the plain version's call time
+    and the bound."""
     from compose_tpu_torch.mesh import cubed_sphere
     from compose_tpu_torch.transport import cdr_fused, dss
 
@@ -108,13 +142,19 @@ def phase_kernels(dev, stats, dtype, ne=30):
     eps = torch.finfo(dtype).eps
 
     def record(name, err, fn, plain, args, out, flops, shape):
-        stats[name] = dict(max_abs_err=err, ms=cuda_ms(fn),
-                           plain_ms=cuda_ms(plain), library_ms=None,
-                           **bound(args, out, flops, dtype))
-        st = stats[name]
-        log(f"{name} {shape}: bitwise == plain, bounds held; "
-            f"{st['ms']:.4f} ms vs plain {st['plain_ms']:.4f} ms; bound "
-            f"{st['bound_ms']:.4f} ms ({st['bytes'] / 1e6:.1f} MB)")
+        """Time one (C entry, shape); the entry's last row (its 40-row
+        shape) gives its summary numbers."""
+        row = dict(shape=list(shape), ms=device_ms(fn), call_ms=cuda_ms(fn),
+                   plain_ms=cuda_ms(plain), **bound(args, out, flops, dtype))
+        st = stats.setdefault(name, dict(shapes=[], library_ms=None))
+        st["shapes"].append(row)
+        st.update(max_abs_err=err, **{k: row[k] for k in (
+            "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")})
+        log(f"{name} {tuple(shape)}: bitwise == plain, bounds held; device "
+            f"{row['ms']:.5f} ms, call {row['call_ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms; bound {row['bound_ms']:.5f} ms "
+            f"({row['bytes'] / 1e6:.2f} MB, {row['bound_ms'] / row['ms']:.1%}"
+            f" of it)")
 
     # K1: per-cell records; infeasible cells (mass outside [min, max]).
     def k1_inputs(rows):
@@ -146,9 +186,13 @@ def phase_kernels(dev, stats, dtype, ne=30):
                 and bool((out <= mx + 1e2 * eps * scale_hi).all())):
             raise AssertionError("K1: feasible problem left its bounds")
         err = max(err, float((out - ref).abs().max()))
-    record(f"glbl_caas_{sfx}", err, lambda: cdr_fused.glbl_caas(*a1),
-           lambda: cdr_fused.glbl_caas_plain(*a1), a1, out,
-           12 * nt * ncell, f"(1|{nt}, {ncell})")
+        # The rho call passes 1-D records and a 0-d extra mass.
+        if rows == 1:
+            a1 = [x[0] for x in a1]
+        record(f"glbl_caas_{sfx}", err,
+               lambda a=a1: cdr_fused.glbl_caas(*a),
+               lambda a=a1: cdr_fused.glbl_caas_plain(*a), a1, out,
+               12 * rows * ncell, (rows, ncell))
 
     # K2: zero-density nodes and infeasible cells (targets outside the
     # cell's [sum a qmin, sum a qmax]) included.
@@ -170,7 +214,7 @@ def phase_kernels(dev, stats, dtype, ne=30):
     record(f"limit_caas_{sfx}", float((out - ref).abs().max()),
            lambda: cdr_fused.limit_caas(*a2),
            lambda: cdr_fused.limit_caas_plain(*a2), a2, out,
-           30 * nt * ncell * np2, f"({nt}, {ncell}x{np2})")
+           30 * nt * ncell * np2, (nt, ncell, np2))
 
     # K3 / K4: zero-density nodes exercise the F-weighted fallback.
     ndgll = ncell * np2
@@ -178,13 +222,17 @@ def phase_kernels(dev, stats, dtype, ne=30):
     rho_n = torch.tensor(rng.uniform(0.5, 1.5, ndgll), **kw)
     rho_n[torch.tensor(rng.random(ndgll) < 0.05, device=dev)] = 0.0
     w = Ff * rho_n
-    idx32 = mesh.c2d_idx.to(torch.int32).contiguous()
     d2c = mesh.dgll2cgll.reshape(-1)
+    # Built once per mesh, as IslTransport does. The bound counts the
+    # public (cnn, 4) int32 index and mask instead, as it did before the
+    # kernel had a private table, so bounds compare the same work.
+    slots = dss.slot_table(mesh.c2d_idx, mesh.c2d_mask, d2c)
+    idx32 = mesh.c2d_idx.to(torch.int32)
     err = 0.0
     for rows in (1, nt):
         q = torch.tensor(rng.uniform(0.0, 1.0, (rows, ndgll)), **kw)
         kargs = (w, Ff, q, mesh.c2d_idx, mesh.c2d_mask, d2c)
-        out = dss.dss_q(*kargs, c2d_idx32=idx32)
+        out = dss.dss_q(*kargs, slots=slots)
         ref = dss.dss_q_plain(*kargs)
         torch.cuda.synchronize()
         same(out, ref, f"dss_q_{sfx} ({rows}, {ndgll})")
@@ -195,11 +243,11 @@ def phase_kernels(dev, stats, dtype, ne=30):
         if not (bool((out >= lo).all()) and bool((out <= hi).all())):
             raise AssertionError("DSS merge: output outside the slot range")
         err = max(err, float((out - ref).abs().max()))
-    record(f"dss_q_{sfx}", err,
-           lambda: dss.dss_q(*kargs, c2d_idx32=idx32),
-           lambda: dss.dss_q_plain(*kargs),
-           (w, Ff, q, idx32, mesh.c2d_mask), out, 17 * nt * mesh.cnn,
-           f"(1|{nt}, {ndgll})")
+        record(f"dss_q_{sfx}", err,
+               lambda a=kargs: dss.dss_q(*a, slots=slots),
+               lambda a=kargs: dss.dss_q_plain(*a),
+               (w, Ff, q, idx32, mesh.c2d_mask), out, 17 * rows * mesh.cnn,
+               (rows, ndgll))
 
 
 def _model(dev, ne, nt, dtype, **cfg):
@@ -381,15 +429,22 @@ def main():
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
         f"({_native.library_path().name})")
 
+    # The floor under any device time below: one one-element torch kernel
+    # per graph node.
+    one = torch.zeros(1, dtype=F32, device=dev)
+    log(f"graph launch floor: {device_ms(lambda: one.add_(1.0)):.5f} ms "
+        f"per launch (one-element add_)")
     stats = {}
     phase_kernels(dev, stats, F64)
     phase_kernels(dev, stats, F32)
+    if "--kernels" in sys.argv[1:]:
+        return
     phase_small_reference(dev)
     launches = phase_paths(dev)
     phase_golden(dev)
 
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+    keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "shapes")
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=src, replaces=rep,
              launches=launches[n], **{k: stats[n][k] for k in keys})

@@ -37,12 +37,13 @@ _I = ctypes.c_int
 # C signatures: name -> argtypes (all return int, a cudaError_t). Each
 # kernel has an f64 and an f32 entry, instantiated from one template.
 _ARGTYPES = {
-    # qmin, qmass, qmax, extra, out, nt, ncell, stream
-    "glbl_caas": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # qmin, qmass, qmax, extra, out, nt, ncell, cluster, warps, width,
+    # chunks, rounds, stream
+    "glbl_caas": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # rhom, rho, Q, qmin, qmax, b, out, nt, ncell, stream
     "limit_caas": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
-    # w, F, q, c2d_idx, c2d_mask, out, nt, cnn, ndgll, stream
-    "dss_q": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # w, F, q, slots, out, nt, ndgll, stream
+    "dss_q": (_P, _P, _P, _P, _P, _I, _I, _P),
 }
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _SIGNATURES = {f"{k}_{sfx}": v for k, v in _ARGTYPES.items()

@@ -1,5 +1,6 @@
-// K3 and K4: mixing-ratio DSS merge, one thread per (tracer, continuous
-// node), templated over the real type: dss_q_f64 (K3) and dss_q_f32 (K4).
+// K3 and K4: mixing-ratio DSS merge, one thread per DGLL slot looping over
+// a chunk of tracers, templated over the real type: dss_q_f64 (K3) and
+// dss_q_f32 (K4).
 //
 // Replaces the TPU kernels compose_tpu/transport/dss_face.py:_q_kernel_dd
 // (K3, df64 lane-roll merges) and dss_face.py:_q_kernel (K4, the f32 merge
@@ -13,19 +14,23 @@
 // The caller passes w = F * rho for tracers and w = F for a density field
 // (dss_gather_t), where the fallback never fires.
 //
-// Bound: memory; per slot one q read and one write plus the node's index,
-// mask and weights (~2-4 MB of tables at the flagship size, L2-resident and
-// shared by all tracers), ~55 MB (f64) or ~28 MB (f32) of q traffic at
-// 40 x 86400.
+// Bound: memory; one q read and one write per slot and tracer (~55 MB in
+// f64, ~28 MB in f32 at 40 x 86400), plus the weights and the slot table
+// (~2 MB, read once per slot, not per tracer).
 //
-// Design: the TPU's roll merges were a workaround for slow gathers. Here
-// each thread gathers its node's slots through c2d_idx/c2d_mask in column
-// order and sums in the fixed order ((s0 + s1) + s2) + s3, masked slots
-// contributing exact zeros; the plain version spells out the same order.
-// Cube-edge nodes are ordinary nodes in this formulation, so no fix pass is
-// needed. Each slot belongs to exactly one node, so every output is written
-// by one thread: no atomics. K4 divides num / den like K3 (the TPU kernel
-// divided by an f64-merged den0 at the fallback). Built with --fmad=false.
+// Design: slot-parallel. Grid (slots / 256, tracer chunks): thread s owns
+// DGLL slot s, in slot order, and loops over a chunk of kTracers tracers,
+// so nt = 1 still fills the card. Row s of the private slot table
+// (dss.slot_table: c2d_idx[dgll2cgll[s]] as int32, -1 where c2d_mask is
+// False) names the node's slots in c2d_idx's column order; the thread
+// reads it, the node's weights, den and the fallback's F weights once,
+// outside the tracer loop. Per tracer it reads its own slot (coalesced),
+// gathers the node's other <= 3 slots (in neighbouring cells, L1/L2
+// resident) and writes only its own slot (coalesced). Every slot of a node
+// runs the same operations in the same order, ((s0 + s1) + s2) + s3 with
+// masked slots contributing exact zeros, so all copies agree and equal the
+// plain version's; cube-edge nodes need no fix pass. No atomics; built
+// with --fmad=false.
 
 #include <cuda_runtime.h>
 
@@ -34,85 +39,82 @@
 namespace {
 
 constexpr int kBlock = 256;
+constexpr int kTracers = 8;
 
 template <class T>
-__global__ void dss_q_kernel(const T* __restrict__ w, const T* __restrict__ F,
-                             const T* __restrict__ q,
-                             const int* __restrict__ c2d_idx,
-                             const unsigned char* __restrict__ c2d_mask,
-                             T* __restrict__ out, long total, int cnn,
-                             int ndgll) {
-  const long tid = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= total) return;
-  const long t = tid / cnn;
-  const int c = (int)(tid % cnn);
-  const T* qt = q + t * ndgll;
-  T* ot = out + t * ndgll;
-  const T zero = T(0);
-
-  int s[4];
-  bool m[4];
-  T v[4], ws[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    s[k] = c2d_idx[4 * c + k];
-    m[k] = c2d_mask[4 * c + k] != 0;
-    v[k] = m[k] ? qt[s[k]] : zero;
-    ws[k] = m[k] ? w[s[k]] : zero;
-  }
-  const T den = ((ws[0] + ws[1]) + ws[2]) + ws[3];
-  T cg;
-  if (den > zero) {
-    const T num = ((ws[0] * v[0] + ws[1] * v[1]) + ws[2] * v[2]) +
-                  ws[3] * v[3];
-    cg = num / den;
-  } else {
-    T f[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) f[k] = m[k] ? F[s[k]] : zero;
-    const T num0 = ((f[0] * v[0] + f[1] * v[1]) + f[2] * v[2]) + f[3] * v[3];
-    const T den0 = ((f[0] + f[1]) + f[2]) + f[3];
-    cg = num0 / den0;
-  }
-  T mn = v[0], mx = v[0];  // slot 0 is always valid
-#pragma unroll
-  for (int k = 1; k < 4; ++k) {
-    if (m[k]) {
-      mn = real::min(mn, v[k]);
-      mx = real::max(mx, v[k]);
-    }
-  }
-  cg = real::min(real::max(cg, mn), mx);
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    if (m[k]) ot[s[k]] = cg;
+__device__ __forceinline__ T sum4(const T* x) {
+  return ((x[0] + x[1]) + x[2]) + x[3];
 }
 
 template <class T>
-int launch(const T* w, const T* F, const T* q, const int* c2d_idx,
-           const unsigned char* c2d_mask, T* out, int nt, int cnn, int ndgll,
-           void* stream) {
-  const long total = (long)nt * cnn;
-  const long blocks = (total + kBlock - 1) / kBlock;
-  if (total > 0)
-    dss_q_kernel<T><<<(unsigned)blocks, kBlock, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-        w, F, q, c2d_idx, c2d_mask, out, total, cnn, ndgll);
+__global__ void __launch_bounds__(kBlock)
+    dss_q_kernel(const T* __restrict__ w, const T* __restrict__ F,
+                 const T* __restrict__ q, const int4* __restrict__ slots,
+                 T* __restrict__ out, int nt, int ndgll) {
+  const int s = blockIdx.x * kBlock + threadIdx.x;
+  if (s >= ndgll) return;
+  const T zero = T(0);
+  const int4 row = slots[s];
+  const int idx[4] = {row.x, row.y, row.z, row.w};
+  bool m[4];
+  T c[4];  // the merge weights: w, or F at a zero-mass node
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    m[k] = idx[k] >= 0;
+    c[k] = m[k] ? w[idx[k]] : zero;
+  }
+  T den = sum4(c);
+  if (!(den > zero)) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) c[k] = m[k] ? F[idx[k]] : zero;
+    den = sum4(c);
+  }
+
+  const int t0 = static_cast<int>(blockIdx.y) * kTracers;
+  const int t1 = min(nt, t0 + kTracers);
+#pragma unroll 2
+  for (int t = t0; t < t1; ++t) {
+    const T* qt = q + (long)t * ndgll;
+    T v[4], p[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[k] = m[k] ? qt[idx[k]] : zero;
+      p[k] = c[k] * v[k];
+    }
+    T mn = v[0], mx = v[0];  // column 0 is always valid
+#pragma unroll
+    for (int k = 1; k < 4; ++k) {
+      if (m[k]) {
+        mn = real::min(mn, v[k]);
+        mx = real::max(mx, v[k]);
+      }
+    }
+    out[(long)t * ndgll + s] = real::min(real::max(sum4(p) / den, mn), mx);
+  }
+}
+
+template <class T>
+int launch(const T* w, const T* F, const T* q, const int* slots, T* out,
+           int nt, int ndgll, void* stream) {
+  if (nt > 0 && ndgll > 0) {
+    const dim3 grid((ndgll + kBlock - 1) / kBlock,
+                    (nt + kTracers - 1) / kTracers);
+    dss_q_kernel<T><<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+        w, F, q, reinterpret_cast<const int4*>(slots), out, nt, ndgll);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int dss_q_f64(const double* w, const double* F, const double* q,
-                         const int* c2d_idx, const unsigned char* c2d_mask,
-                         double* out, int nt, int cnn, int ndgll,
+                         const int* slots, double* out, int nt, int ndgll,
                          void* stream) {
-  return launch(w, F, q, c2d_idx, c2d_mask, out, nt, cnn, ndgll, stream);
+  return launch(w, F, q, slots, out, nt, ndgll, stream);
 }
 
 extern "C" int dss_q_f32(const float* w, const float* F, const float* q,
-                         const int* c2d_idx, const unsigned char* c2d_mask,
-                         float* out, int nt, int cnn, int ndgll,
+                         const int* slots, float* out, int nt, int ndgll,
                          void* stream) {
-  return launch(w, F, q, c2d_idx, c2d_mask, out, nt, cnn, ndgll, stream);
+  return launch(w, F, q, slots, out, nt, ndgll, stream);
 }

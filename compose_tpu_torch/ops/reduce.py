@@ -11,7 +11,7 @@ results on the same inputs).
 import torch
 
 
-def _next_pow2(n: int) -> int:
+def next_pow2(n: int) -> int:
     p = 1
     while p < n:
         p *= 2
@@ -31,7 +31,7 @@ def bfb_sum(x, dim: int = -1):
     """Sum along `dim` with the fixed adjacent-pair binary-tree order."""
     x = torch.movedim(x, dim, -1)
     n = x.shape[-1]
-    p = _next_pow2(n)
+    p = next_pow2(n)
     if p != n:
         x = torch.nn.functional.pad(x, (0, p - n))
     return _pair_fold(x)

@@ -13,11 +13,13 @@ tensor (`glbl_caas_f64`/`_f32`, `limit_caas_f64`/`_f32`); it never falls
 back. `_native.KERNELS[name].launches` counts each kernel's launches.
 """
 
+import functools
+
 import torch
 
 from .. import _native
 from ..ops import local_qp
-from ..ops.reduce import bfb_sum
+from ..ops.reduce import bfb_sum, next_pow2
 
 
 # ---------------------------------------------------------------------------
@@ -40,6 +42,27 @@ def glbl_caas_plain(Q_min, Q_mass, Q_max, extra_mass):
     return msd + fac[..., None] * v
 
 
+@functools.lru_cache(maxsize=None)
+def glbl_caas_geometry(ncell: int):
+    """K1's launch geometry for rows of `ncell` cells: (cluster, warps,
+    width, chunks, rounds), powers of two whose product is npad, ncell
+    rounded up to a power of two. Each row is a cluster of `cluster` blocks
+    of `warps` warps; a warp owns `rounds` x `chunks` aligned chunks of
+    `width` (<= 32) cells, and keeps them in registers when rounds == 1.
+    Chunks fill to 4, warps to 8, then the cluster to 8 blocks (the
+    portable cluster size): rows of up to 8192 cells are read once; larger
+    rows take more rounds."""
+    npad = next_pow2(ncell)
+    width = min(32, npad)
+    rest = npad // width
+    sizes = []
+    for cap in (4, 8, 8):             # chunks, warps, cluster
+        sizes.append(min(cap, rest))
+        rest //= sizes[-1]
+    chunks, warps, cluster = sizes
+    return cluster, warps, width, chunks, rest
+
+
 def glbl_caas(Q_min, Q_mass, Q_max, extra_mass):
     """K1. Q_*: (nt, ncell) or (ncell,), f64 or f32; extra_mass: (nt,) or
     scalar. CPU tensors: the plain version. CUDA tensors: the kernel
@@ -47,24 +70,22 @@ def glbl_caas(Q_min, Q_mass, Q_max, extra_mass):
     version."""
     if not Q_mass.is_cuda:
         return glbl_caas_plain(Q_min, Q_mass, Q_max, extra_mass)
-    dt = Q_mass.dtype
-    squeeze = Q_mass.dim() == 1
-    lead = Q_mass.shape[:-1]
-    ncell = Q_mass.shape[-1]
-    qmin, qmass, qmax = (x.reshape(-1, ncell).contiguous()
-                         for x in (Q_min, Q_mass, Q_max))
-    nt = qmass.shape[0]
-    extra = torch.as_tensor(extra_mass, dtype=dt, device=Q_mass.device)
-    extra = extra.expand(lead).reshape(nt).contiguous()
+    dt, shape = Q_mass.dtype, Q_mass.shape
+    ncell = shape[-1]
+    nt = Q_mass.numel() // max(ncell, 1)
+    qmin, qmass, qmax = (x.contiguous() for x in (Q_min, Q_mass, Q_max))
+    extra = extra_mass
+    if not (torch.is_tensor(extra) and extra.is_cuda and extra.dtype == dt
+            and extra.numel() == nt and extra.is_contiguous()):
+        extra = torch.as_tensor(extra, dtype=dt, device=Q_mass.device)
+        extra = extra.expand(shape[:-1]).contiguous()
     out = torch.empty_like(qmass)
-    ptrs = [_native.require(x, n, dt, (nt, ncell)) for x, n in
-            ((qmin, "Q_min"), (qmass, "Q_mass"), (qmax, "Q_max"),
-             (out, "out"))]
-    ex = _native.require(extra, "extra_mass", dt, (nt,))
-    _native.kernel("glbl_caas", dt)(ptrs[0], ptrs[1], ptrs[2], ex, ptrs[3],
-                                    nt, ncell,
+    ptrs = [_native.require(x, n, dt, shape) for x, n in
+            ((qmin, "Q_min"), (qmass, "Q_mass"), (qmax, "Q_max"))]
+    _native.kernel("glbl_caas", dt)(*ptrs, extra.data_ptr(), out.data_ptr(),
+                                    nt, ncell, *glbl_caas_geometry(ncell),
                                     stream=_native.stream_of(qmass))
-    return out[0] if squeeze else out.reshape(lead + (ncell,))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,9 @@ The wrapper takes the plain PyTorch version for a CPU tensor and launches
 the CUDA kernel (csrc/dss_q.cu) of the tensors' dtype for a CUDA tensor:
 K3 `dss_q_f64`, or K4 `dss_q_f32` on the single-precision route.
 `_native.KERNELS[name].launches` counts each kernel's launches. Sums run
-in the fixed order ((s0 + s1) + s2) + s3 in both.
+in the fixed order ((s0 + s1) + s2) + s3 in both. The kernel is
+slot-parallel: it reads each slot's node through `slot_table`, a private
+slot-major copy of c2d_idx that leaves the public numbering as it is.
 """
 
 import torch
@@ -41,39 +43,46 @@ def dss_q_plain(w, F, q, c2d_idx, c2d_mask, d2c_map):
     return cg[:, d2c_map]
 
 
-def dss_q(w, F, q, c2d_idx, c2d_mask, d2c_map, c2d_idx32=None):
-    """K3 (f64) and K4 (f32). Arguments as dss_q_plain; the kernel takes
-    the inverse map as int32 (`c2d_idx32`, derived from c2d_idx if not
-    given). CPU tensors: the plain version. CUDA tensors: the kernel of
-    their dtype, one thread per (tracer, node), writing every valid slot
-    (the d2c injection is implicit)."""
+def slot_table(c2d_idx, c2d_mask, d2c_map):
+    """The kernel's slot-major table, built once per mesh: row s is the
+    c2d_idx row of slot s's node, c2d_idx[d2c_map[s]], as int32 with -1
+    where c2d_mask is False. (ndgll, 4), contiguous, on the mesh's
+    device."""
+    return torch.where(c2d_mask, c2d_idx, -1)[d2c_map].to(
+        torch.int32).contiguous()
+
+
+def dss_q(w, F, q, c2d_idx, c2d_mask, d2c_map, slots=None):
+    """K3 (f64) and K4 (f32). Arguments as dss_q_plain. CPU tensors: the
+    plain version. CUDA tensors: the kernel of their dtype, one thread per
+    DGLL slot looping over tracers. `slots` is slot_table(c2d_idx,
+    c2d_mask, d2c_map), built here if not given; a caller that passes it
+    (IslTransport, once per mesh) vouches for it and for F, the static
+    tables, which are then not checked again."""
     if not q.is_cuda:
         return dss_q_plain(w, F, q, c2d_idx, c2d_mask, d2c_map)
     nt, ndgll = q.shape
-    cnn = c2d_idx.shape[0]
     dt = q.dtype
-    if c2d_idx32 is None:
-        c2d_idx32 = c2d_idx.to(torch.int32)
+    if slots is None:
+        slots = slot_table(c2d_idx, c2d_mask, d2c_map)
+        _native.require(slots, "slots", torch.int32, (ndgll, 4))
+        _native.require(F, "F", dt, (ndgll,))
     out = torch.empty_like(q)
-    args = [_native.require(w, "w", dt, (ndgll,)),
-            _native.require(F, "F", dt, (ndgll,)),
-            _native.require(q, "q", dt, (nt, ndgll)),
-            _native.require(c2d_idx32, "c2d_idx", torch.int32, (cnn, 4)),
-            _native.require(c2d_mask, "c2d_mask", torch.bool, (cnn, 4)),
-            _native.require(out, "out", dt, (nt, ndgll))]
-    _native.kernel("dss_q", dt)(*args, nt, cnn, ndgll,
-                                stream=_native.stream_of(q))
+    _native.kernel("dss_q", dt)(
+        _native.require(w, "w", dt, (ndgll,)), F.data_ptr(),
+        _native.require(q, "q", dt, (nt, ndgll)), slots.data_ptr(),
+        out.data_ptr(), nt, ndgll, stream=_native.stream_of(q))
     return out
 
 
 def dss_q_gather_t(rho_dg, q_dg, d2c_map, c2d_idx, c2d_mask, dgbfi,
-                   c2d_idx32=None):
+                   slots=None):
     """Mixing-ratio DSS of (nt, ndgll) tracers with weights dgbfi * rho."""
     return dss_q(dgbfi * rho_dg, dgbfi, q_dg, c2d_idx, c2d_mask, d2c_map,
-                 c2d_idx32)
+                 slots)
 
 
-def dss_gather_t(dg, d2c_map, c2d_idx, c2d_mask, dgbfi, c2d_idx32=None):
+def dss_gather_t(dg, d2c_map, c2d_idx, c2d_mask, dgbfi, slots=None):
     """DSS of (nt, ndgll) fields with the static weights dgbfi, clipped to
     the coincident range."""
-    return dss_q(dgbfi, dgbfi, dg, c2d_idx, c2d_mask, d2c_map, c2d_idx32)
+    return dss_q(dgbfi, dgbfi, dg, c2d_idx, c2d_mask, d2c_map, slots)

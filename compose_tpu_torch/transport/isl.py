@@ -94,7 +94,9 @@ class IslTransport:
         self.F = mesh.dgbfi_gll
         self.Ff = self.F.reshape(-1).contiguous()
         self.d2c_map = mesh.dgll2cgll.reshape(-1)
-        self.c2d_idx32 = mesh.c2d_idx.to(torch.int32).contiguous()
+        # The DSS kernel's slot table, built once per mesh beside Ff.
+        self.slots = dss.slot_table(mesh.c2d_idx, mesh.c2d_mask,
+                                    self.d2c_map)
         self.mrd = spf.MassRedistributor(mesh.ncell, config.filter)
 
     # ------------------------------------------------------------------
@@ -170,7 +172,7 @@ class IslTransport:
         f64, K4 in f32)."""
         out = dss.dss_gather_t(field.reshape(1, -1), self.d2c_map,
                                self.mesh.c2d_idx, self.mesh.c2d_mask,
-                               self.Ff, self.c2d_idx32)
+                               self.Ff, self.slots)
         return out.reshape(field.shape)
 
     def _dss_q(self, rho_dg, q):
@@ -178,7 +180,7 @@ class IslTransport:
         f64, K4 in f32)."""
         out = dss.dss_q_gather_t(rho_dg.reshape(-1), q.reshape(q.shape[0], -1),
                                  self.d2c_map, self.mesh.c2d_idx,
-                                 self.mesh.c2d_mask, self.Ff, self.c2d_idx32)
+                                 self.mesh.c2d_mask, self.Ff, self.slots)
         return out.reshape(q.shape)
 
     # ------------------------------------------------------------------

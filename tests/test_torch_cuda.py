@@ -42,14 +42,42 @@ def _glbl_caas_case(dev, nt, ncell, dtype):
     assert torch.equal(out, cdr_fused.glbl_caas_plain(*args))
 
 
-@pytest.mark.parametrize("nt,ncell", [(1, 96), (3, 96), (40, 5400), (2, 1)])
+# ncell 1 (one lane), 96 (one warp), 5400 (a full cluster, all-padding
+# blocks) and 86400 (more cells than the cluster's threads hold: rounds).
+K1_CASES = [(1, 96), (3, 96), (40, 5400), (2, 1), (1, 1), (40, 1), (40, 96),
+            (1, 5400), (1, 86400), (40, 86400)]
+
+
+@pytest.mark.parametrize("nt,ncell", K1_CASES)
 def test_glbl_caas_kernel(dev, nt, ncell):
     _glbl_caas_case(dev, nt, ncell, torch.float64)
 
 
-@pytest.mark.parametrize("nt,ncell", [(1, 96), (3, 96), (40, 5400), (2, 1)])
+@pytest.mark.parametrize("nt,ncell", K1_CASES)
 def test_glbl_caas_kernel_f32(dev, nt, ncell):
     _glbl_caas_case(dev, nt, ncell, F32)
+
+
+def test_glbl_caas_kernel_1d(dev):
+    # The rho call: 1-D records and a 0-d extra mass.
+    rng = np.random.default_rng(5)
+    mn = rng.uniform(0, 1, 5400)
+    args = [_t(a, dev) for a in (mn, rng.uniform(-0.5, 2.5, 5400),
+                                 mn + rng.uniform(0, 1, 5400))]
+    args.append(_t(0.25, dev))
+    out = cdr_fused.glbl_caas(*args)
+    assert out.shape == (5400,)
+    assert torch.equal(out, cdr_fused.glbl_caas_plain(*args))
+
+
+def test_glbl_caas_kernel_refuses_bad_geometry(dev):
+    x = torch.zeros((1, 96), dtype=torch.float64, device=dev)
+    ex = torch.zeros(1, dtype=torch.float64, device=dev)
+    k = _native.kernel("glbl_caas", torch.float64)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        k(x.data_ptr(), x.data_ptr(), x.data_ptr(), ex.data_ptr(),
+          x.data_ptr(), 1, 96, 1, 1, 32, 4, 2,   # 256 pieces for npad 128
+          stream=_native.stream_of(x))
 
 
 def _limit_caas_case(dev, dtype):
@@ -79,28 +107,43 @@ def test_limit_caas_kernel_f32(dev):
     _limit_caas_case(dev, F32)
 
 
-def _dss_q_case(dev, nt, dtype):
-    mesh = cubed_sphere.build(4, 4, device=dev, dtype=dtype)
+def _dss_q_case(dev, ne, nt, dtype):
+    mesh = cubed_sphere.build(ne, 4, device=dev, dtype=dtype)
     rng = np.random.default_rng(nt)
     ndg = mesh.ncell * mesh.np2
+    # 20% of the nodes with every slot at zero density (the F fallback).
+    idx, mask = mesh.c2d_idx.cpu().numpy(), mesh.c2d_mask.cpu().numpy()
     rho = rng.uniform(0.5, 1.5, ndg)
-    rho[rng.random(ndg) < 0.2] = 0.0
+    nodes = rng.choice(mesh.cnn, mesh.cnn // 5, replace=False)
+    rho[idx[nodes][mask[nodes]]] = 0.0
+    rho[rng.random(ndg) < 0.02] = 0.0
     F = mesh.dgbfi_gll.reshape(-1).contiguous()
+    d2c = mesh.dgll2cgll.reshape(-1)
     args = (F * _t(rho, dev, dtype), F,
             _t(rng.uniform(0, 1, (nt, ndg)), dev, dtype),
-            mesh.c2d_idx, mesh.c2d_mask, mesh.dgll2cgll.reshape(-1))
+            mesh.c2d_idx, mesh.c2d_mask, d2c)
+    ref = dss.dss_q_plain(*args)
     k = _native.kernel("dss_q", dtype)
     before = k.launches
     out = dss.dss_q(*args)
     assert k.launches == before + 1 and out.dtype == dtype
-    assert torch.equal(out, dss.dss_q_plain(*args))
+    assert torch.equal(out, ref)
+    slots = dss.slot_table(mesh.c2d_idx, mesh.c2d_mask, d2c)
+    assert torch.equal(dss.dss_q(*args, slots=slots), ref)
+    # The density DSS (w = F).
+    assert torch.equal(dss.dss_gather_t(args[2], d2c, mesh.c2d_idx,
+                                        mesh.c2d_mask, F, slots),
+                       dss.dss_q_plain(F, F, *args[2:]))
 
 
-@pytest.mark.parametrize("nt", [1, 4])
-def test_dss_q_kernel(dev, nt):
-    _dss_q_case(dev, nt, torch.float64)
+DSS_CASES = [(4, 1), (4, 4), (4, 40), (30, 1), (30, 40)]
 
 
-@pytest.mark.parametrize("nt", [1, 4])
-def test_dss_q_kernel_f32(dev, nt):
-    _dss_q_case(dev, nt, F32)
+@pytest.mark.parametrize("ne,nt", DSS_CASES)
+def test_dss_q_kernel(dev, ne, nt):
+    _dss_q_case(dev, ne, nt, torch.float64)
+
+
+@pytest.mark.parametrize("ne,nt", DSS_CASES)
+def test_dss_q_kernel_f32(dev, ne, nt):
+    _dss_q_case(dev, ne, nt, F32)
