@@ -40,8 +40,8 @@ _ARGTYPES = {
     # qmin, qmass, qmax, extra, out, nt, ncell, cluster, warps, width,
     # chunks, rounds, stream
     "glbl_caas": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # rhom, rho, Q, qmin, qmax, b, out, nt, ncell, stream
-    "limit_caas": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # rhom, rho, Q, qmin, qmax, b, out, nt, ncell, np2, stream
+    "limit_caas": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # w, F, q, slots, out, nt, ndgll, stream
     "dss_q": (_P, _P, _P, _P, _P, _I, _I, _P),
 }

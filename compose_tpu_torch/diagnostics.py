@@ -46,14 +46,18 @@ class Observer:
             fs.min_.append(vals[2])
             fs.max_.append(vals[3])
 
-    def check(self, mass_tol=1e-12, bounds_tol=5e-13):
+    def check(self, mass_tol=1e-12, bounds_tol=5e-13, measure="gll"):
         """Return (ok, max_mass_err, max_bounds_err) over the series. Mass
-        is checked for every field; bounds for the tracers only (a
+        is checked for every field, in the measure the model conserves
+        ("gll", or "sphere" for dmc es); bounds for the tracers only (a
         divergent flow changes the density's range)."""
+        if measure not in ("gll", "sphere"):
+            raise ValueError(f"measure '{measure}': expected gll | sphere")
         max_mass = 0.0
         max_bounds = 0.0
         for fs in self.fields:
-            m = np.asarray(fs.mass_gll)
+            m = np.asarray(fs.mass_gll if measure == "gll"
+                           else fs.mass_sphere)
             if len(m) > 1:
                 max_mass = max(max_mass, float(np.max(
                     np.abs(np.diff(m)) / np.maximum(1.0, np.abs(m[1:])))))

@@ -1,7 +1,11 @@
-"""End-to-end transport runs (compose_tpu.driver), for method pisl with the
-filters qlt | mn2 | caas and the limiters mn2 | caas: mesh + wind + initial
-conditions, the time loop with the reference's per-step checks on tracer
-0, and the final error norms of the reference's `print_error`.
+"""End-to-end transport runs (compose_tpu.driver), for the ISL methods pisl
+and pislu (pisl with the plain GLL interpolant) with every ISL option:
+mesh + wind + initial conditions, the time loop with the reference's
+per-step checks on tracer 0 (mass in the measure the model conserves:
+sphere for dmc es, else GLL; bounds, or nonnegativity alone for a
+positive-only filter), and the final error norms of the reference's
+`print_error`. The mixed `isl` method, IR/CDG, p-refinement and subcell
+meshes are not ported and raise NotImplementedError.
 
 `x64=False` is the single-precision route, the counterpart of the JAX
 package's COMPOSE_TPU_X64=0: the state, the mesh tables, the geometry and
@@ -106,20 +110,42 @@ def summarize(mesh, f0, rho0, f, rho, et_timestep=0.0,
 def run(ne=10, np_=4, nsteps=12, T_days=12.0, ics=("gaussianhills",),
         ode="divergent", method="pisl", filter_="qlt", limiter="mn2",
         basis="GllNodal", nsub=8, dmc="none", geom_dtype="f64",
-        interp_dtype="f64", verbose=True, *, x64=True, device="cuda"):
-    """One slmmir-style pisl run on `device` (the current CUDA device
+        interp_dtype="f64", verbose=True, fitext=False, rotate_grid=False,
+        timeint="exact", nonuni=False, prefine=0, mesh_type="geometric", *,
+        x64=True, device="cuda"):
+    """One slmmir-style ISL run on `device` (the current CUDA device
     unless the CPU is asked for), in f64 or, with x64=False, in f32;
     returns RunOutput."""
-    if method != "pisl":
+    if method not in ("pisl", "pislu"):
         raise NotImplementedError(f"method '{method}' is not ported")
+    if prefine:
+        raise NotImplementedError(f"prefine {prefine} is not ported")
+    # Positive-only filter spellings: only qlt-pve is positive-only;
+    # caas-pve is the caas redistribution with the standard bounds.
+    positive_only = filter_ == "qlt-pve"
+    if filter_.endswith("-pve"):
+        filter_ = filter_[:-len("-pve")]
+    rotate = None
+    if rotate_grid:
+        # The reference's fixed rotations: vortex problems probe the cube
+        # corners; otherwise keep the solid-body center off a node.
+        if ode.lower() == "movingvortices":
+            rotate = ((1.0, 0.0, 0.0), 0.97654321 * np.pi / 4)
+        else:
+            rotate = ((0.11111, -0.051515, 1.0), 0.142314 * np.pi)
     dev = resolve_device(device)
     dtype = real_dtype(x64)
-    mesh = cubed_sphere.build(ne, np_, basis, device=dev, dtype=dtype)
+    mesh = cubed_sphere.build(ne, np_, basis, device=dev, dtype=dtype,
+                              rotate=rotate, nonuni=nonuni,
+                              mesh_type=mesh_type)
     wind = gallery.create_wind(ode)
-    cfg = IslConfig(ne=ne, np_=np_, basis=basis, filter=filter_,
-                    limiter=limiter, rho_isl=True, nsub=nsub,
+    cfg = IslConfig(ne=ne, np_=np_, basis="Gll" if method == "pislu"
+                    else basis, filter=filter_, limiter=limiter,
+                    rho_isl=True, nsub=nsub,
                     dmc="f" if dmc == "none" else dmc,
-                    geom_dtype=geom_dtype, interp_dtype=interp_dtype)
+                    positive_only=positive_only, fitext=fitext,
+                    timeint=timeint, geom_dtype=geom_dtype,
+                    interp_dtype=interp_dtype, rotate=rotate)
     model = IslTransport(mesh, wind, cfg)
 
     rho = torch.ones((mesh.ncell, mesh.np2), dtype=dtype, device=dev)
@@ -127,13 +153,15 @@ def run(ne=10, np_=4, nsteps=12, T_days=12.0, ics=("gaussianhills",),
     q0, rho0 = q, rho
     T = constants.day2sec(T_days)
     dt = T / nsteps
-    F_gll = mesh.dgbfi_gll.reshape(-1).to(F64)
+    # The per-step mass check's measure: the one the model conserves.
+    F_check = (mesh.dgbfi_sphere if dmc == "es"
+               else mesh.dgbfi_gll).reshape(-1).to(F64)
 
     def tracer0_stats(q, rho):
         # One host read per step: mass (bfb tree, in f64), min, max of
         # tracer 0.
         Q = (q[0].to(F64) * rho.to(F64)).reshape(-1)
-        return torch.stack([bfb_sum(F_gll * Q), torch.amin(q[0]).to(F64),
+        return torch.stack([bfb_sum(F_check * Q), torch.amin(q[0]).to(F64),
                             torch.amax(q[0]).to(F64)]).tolist()
 
     mass_prev, q_min0, q_max0 = tracer0_stats(q, rho)
@@ -148,9 +176,12 @@ def run(ne=10, np_=4, nsteps=12, T_days=12.0, ics=("gaussianhills",),
         max_step_mass_err = max(max_step_mass_err,
                                 abs(mass - mass_prev) / max(1.0, abs(mass)))
         mass_prev = mass
-        max_step_bounds_err = max(max_step_bounds_err,
-                                  max(0.0, q_min0 - qmin),
-                                  max(0.0, qmax - q_max0))
+        if positive_only:
+            # Positive-only runs check nonnegativity only.
+            bounds = (max(0.0, -qmin),)
+        else:
+            bounds = (max(0.0, q_min0 - qmin), max(0.0, qmax - q_max0))
+        max_step_bounds_err = max(max_step_bounds_err, *bounds)
     et = (time.time() - t_start) / nsteps
     out = summarize(mesh, q0[0], rho0, q[0], rho, et, max_step_mass_err,
                     max_step_bounds_err)
@@ -158,4 +189,3 @@ def run(ne=10, np_=4, nsteps=12, T_days=12.0, ics=("gaussianhills",),
         print(out.one_liner(method=method, ode=ode, ic=ics[0], np=np_, ne=ne,
                             nsteps=nsteps, mono=filter_, lim=limiter))
     return out
-

@@ -1,12 +1,21 @@
 """Quasiuniform equiangular cubed-sphere spectral-element mesh
-(compose_tpu.mesh.cubed_sphere), uniform meshes only.
+(compose_tpu.mesh.cubed_sphere), optionally rotated (`rotate`) or warped
+by the reference's nonuniform map (`nonuni`). Subcell meshes are not
+ported.
 
 Cell (face, iy, ix) has id face*ne^2 + iy*ne + ix; its np x np nodes are the
-normalized bilinear images of the reference-square GLL grid over the cell
-corners. The continuous (CGLL) numbering comes from exact integer keys on
-the cube surface. Construction runs on the host (numpy, plus torch f64 for
-the Jacobians and sphere integrals); the finished tables are moved to the
-requested device. Integer tables are int64 (torch indexing wants int64).
+normalized bilinear images of the reference-square grid over the cell
+corners: the GLL nodes, or the basis's own nodes for bases whose nodes are
+not GLL (uniform, free). The continuous (CGLL) numbering comes from exact
+integer keys on the cube surface. Construction runs on the host (numpy,
+plus torch f64 for the Jacobians and sphere integrals); the finished
+tables are moved to the requested device. Integer tables are int64 (torch
+indexing wants int64).
+
+Point location is O(1) on uniform meshes (the equiangular index, after
+un-rotating the point). On a nonuniform mesh it inverts the analytic warp,
+takes the equiangular candidate, and picks among its ring-1 neighbours
+(the cells sharing a corner with it) by the Newton inverse.
 """
 
 import dataclasses
@@ -79,15 +88,25 @@ class CubedSphereMesh:
     dgbfi_sphere: torch.Tensor   # (ncell, np2) spherical integrals
     basis_x: torch.Tensor        # (np,)
     basis_w: torch.Tensor        # (np,)
+    rot_R: torch.Tensor = None   # (3, 3) grid rotation, or None
+    warp_R: torch.Tensor = None  # (3, 3) nonuniform warp rotation, or None
+    ring1: torch.Tensor = None   # (ncell, 9) int64 corner-sharing cells
+    ring1_mask: torch.Tensor = None  # (ncell, 9) bool
 
     @property
     def np2(self):
         return self.np_ * self.np_
 
+    @property
+    def nonuni(self):
+        return self.warp_R is not None
+
 
 _TABLES = ("corners", "cell_nodes_xyz", "dgll2cgll", "cgll_xyz", "cgll_rep",
            "c2d_idx", "c2d_mask", "jac_node", "dgbfi_gll", "dgbfi_sphere",
            "basis_x", "basis_w")
+# Tables of rotated and nonuniform meshes; None on the others.
+_OPTIONAL = ("rot_R", "warp_R", "ring1", "ring1_mask")
 
 
 def _to_tensor(a, device, dtype):
@@ -101,15 +120,16 @@ def _to_tensor(a, device, dtype):
 
 def from_numpy(tables: dict, device="cuda", dtype=F64) -> CubedSphereMesh:
     """Mesh from numpy tables (e.g. a compose_tpu mesh's fields converted
-    with np.asarray): keys ne, np_ and the table names of CubedSphereMesh.
-    Float tables are cast to `dtype`. Only uniform, unrotated meshes are
-    supported."""
+    with np.asarray): keys ne, np_ and the table names of CubedSphereMesh;
+    rot_R, warp_R, ring1 and ring1_mask may be absent or None. Float tables
+    are cast to `dtype`. Subcell meshes are not ported."""
     dev = resolve_device(device)
-    for k in ("rot_R", "warp_R", "sub_parent_ne"):
-        if tables.get(k) is not None and np.any(np.asarray(tables[k])):
-            raise NotImplementedError(f"mesh option {k} is not ported")
+    if tables.get("sub_parent_ne"):
+        raise NotImplementedError("subcell meshes are not ported")
     ne, np_ = int(tables["ne"]), int(tables["np_"])
     t = {k: _to_tensor(tables[k], dev, dtype) for k in _TABLES}
+    t.update({k: None if tables.get(k) is None
+              else _to_tensor(tables[k], dev, dtype) for k in _OPTIONAL})
     return CubedSphereMesh(
         ne=ne, np_=np_, ncell=6 * ne * ne, cnn=int(t["cgll_xyz"].shape[0]),
         basis_name=str(tables.get("basis_name", "GllNodal")), device=dev,
@@ -119,26 +139,94 @@ def from_numpy(tables: dict, device="cuda", dtype=F64) -> CubedSphereMesh:
 _BUILD_CACHE = {}
 
 
+def form_rotation(axis, angle):
+    """Rodrigues rotation matrix about `axis` by `angle` (numpy)."""
+    a = np.asarray(axis, dtype=np.float64)
+    a = a / np.linalg.norm(a)
+    K = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+    return np.eye(3) + np.sin(angle) * K + (1 - np.cos(angle)) * (K @ K)
+
+
+_WARP_F = 0.5  # squash factor of the nonuniform warp
+
+
+def _warp_points(p, R, inverse=False):
+    """Nonuniform warp w(p) = R' normalize(S (R p)), S = diag(1, f, f);
+    the inverse uses S^-1. Numpy arrays (build) or tensors (locate)."""
+    f = (1.0 / _WARP_F) if inverse else _WARP_F
+    if torch.is_tensor(p):
+        Rm = R.to(p.dtype)
+        s = torch.tensor([1.0, f, f], dtype=p.dtype, device=p.device)
+        q = (p @ Rm) * s
+        q = q / torch.sqrt((q * q).sum(-1))[..., None]
+        return q @ Rm.T
+    q = p @ R
+    q = q * np.asarray([1.0, f, f])
+    q = q / np.sqrt((q * q).sum(-1))[..., None]
+    return q @ R.T
+
+
 def build(ne: int, np_: int = 4, basis_name: str = "GllNodal", *,
-          device="cuda", dtype=F64, tq_order: int = 18) -> CubedSphereMesh:
-    """Cached uniform-mesh construction on `device` (the current CUDA
-    device unless the CPU is asked for), float tables in `dtype`."""
+          device="cuda", dtype=F64, tq_order: int = 18, rotate=None,
+          nonuni: bool = False,
+          mesh_type: str = "geometric") -> CubedSphereMesh:
+    """Cached mesh construction on `device` (the current CUDA device unless
+    the CPU is asked for), float tables in `dtype`. `rotate` is an optional
+    (axis, angle) grid rotation; `nonuni` applies the nonuniform warp.
+    Subcell mesh types raise NotImplementedError."""
+    if mesh_type != "geometric":
+        raise NotImplementedError(f"mesh_type '{mesh_type}' is not ported")
     dev = resolve_device(device)
-    key = (ne, np_, basis_name, tq_order, str(dev), dtype)
+    rot = None if rotate is None else (tuple(rotate[0]), float(rotate[1]))
+    key = (ne, np_, basis_name, tq_order, rot, bool(nonuni), str(dev), dtype)
     if key not in _BUILD_CACHE:
         _BUILD_CACHE[key] = from_numpy(
-            _build_tables(ne, np_, basis_name, tq_order), dev, dtype)
+            _build_tables(ne, np_, basis_name, tq_order, rot, bool(nonuni)),
+            dev, dtype)
     return _BUILD_CACHE[key]
 
 
+def _ring1(ne):
+    """Each cell's corner-sharing neighbours (itself included), sorted,
+    padded with the first: (ncell, 9) int64 and the (ncell, 9) mask."""
+    ncell = 6 * ne * ne
+    f_i, iy_i, ix_i = np.unravel_index(np.arange(ncell), (6, ne, ne))
+    gcx = np.stack([ix_i, ix_i + 1, ix_i + 1, ix_i], -1).astype(np.int64)
+    gcy = np.stack([iy_i, iy_i, iy_i + 1, iy_i + 1], -1).astype(np.int64)
+    ckeys = np.empty((ncell, 4, 3), np.int64)
+    for f in range(6):
+        sel = f_i == f
+        ckeys[sel] = _face_key(f, 2 * gcx[sel] - ne, 2 * gcy[sel] - ne, ne)
+    _, vinv = np.unique(ckeys.reshape(-1, 3), axis=0, return_inverse=True)
+    vinv = vinv.reshape(ncell, 4)
+    v2c = {}
+    for c in range(ncell):
+        for k in range(4):
+            v2c.setdefault(vinv[c, k], []).append(c)
+    ring1 = np.zeros((ncell, 9), np.int64)
+    mask = np.zeros((ncell, 9), bool)
+    for c in range(ncell):
+        nb = sorted({cc for k in range(4) for cc in v2c[vinv[c, k]]})
+        assert len(nb) <= 9
+        ring1[c, :len(nb)] = nb
+        mask[c, :len(nb)] = True
+        ring1[c, len(nb):] = nb[0]
+    return ring1, mask
+
+
 @functools.lru_cache(maxsize=None)
-def _build_tables(ne, np_, basis_name, tq_order):
+def _build_tables(ne, np_, basis_name, tq_order, rotate=None, nonuni=False):
     """The mesh tables as numpy arrays (the arithmetic of compose_tpu's
-    _build for uniform meshes), shared by every device and dtype."""
+    _build for geometric meshes), shared by every device and dtype."""
     ncell = 6 * ne * ne
     np2 = np_ * np_
     bas = basis_mod.create(basis_name, np_)
     gx, gw = basis_mod.gll_nodes_weights(np_)
+    # Bases with nodes other than GLL's place the mesh nodes at their own
+    # nodes, with their own weights.
+    bx = bas.x.numpy()
+    if bx.shape == gx.shape and not np.allclose(bx, gx, atol=1e-13):
+        gx, gw = bx, bas.w.numpy()
 
     i = np.arange(ne)
     fx0 = -1.0 + 2.0 * i / ne
@@ -153,6 +241,15 @@ def _build_tables(ne, np_, basis_name, tq_order):
         corners[f, :, :, 3] = _face_point(f, XX0, YY1)
     corners = corners.reshape(ncell, 4, 3)
     corners /= np.linalg.norm(corners, axis=-1, keepdims=True)
+    rot_R = warp_R = ring1 = ring1_mask = None
+    if rotate is not None:
+        rot_R = form_rotation(*rotate)
+        corners = corners @ rot_R.T
+        corners /= np.linalg.norm(corners, axis=-1, keepdims=True)
+    if nonuni:
+        warp_R = form_rotation((1.0, 1.0, 1.0), 0.2 * np.pi)
+        corners = _warp_points(corners, warp_R)
+        ring1, ring1_mask = _ring1(ne)
 
     # Cell nodes: bilinear-sphere map of the GLL reference grid, [j, i].
     A, B = np.meshgrid(gx, gx, indexing='xy')
@@ -213,7 +310,8 @@ def _build_tables(ne, np_, basis_name, tq_order):
                 dgll2cgll=dgll2cgll, cgll_xyz=cgll_xyz, cgll_rep=first_idx,
                 c2d_idx=c2d_idx, c2d_mask=c2d_mask, jac_node=jac_node,
                 dgbfi_gll=dgbfi_gll, dgbfi_sphere=dgbfi_sphere,
-                basis_x=np.asarray(bas.x), basis_w=np.asarray(bas.w))
+                basis_x=bas.x.numpy(), basis_w=bas.w.numpy(), rot_R=rot_R,
+                warp_R=warp_R, ring1=ring1, ring1_mask=ring1_mask)
 
 
 def _dgbfi_sphere(corners, bary, qw, np_):
@@ -235,11 +333,14 @@ def _dgbfi_sphere(corners, bary, qw, np_):
     return out[:n] + out[n:]
 
 
-def get_cell_coords(ne: int, p):
+def get_cell_coords(ne: int, p, R=None):
     """Point location with local coordinates on the uniform mesh: returns
     (cell_idx int64, a0, b0), (a0, b0) being the closed-form equiangular
     estimate of the in-cell reference coordinates (a warm start for
-    sqr.sphere_to_ref)."""
+    sqr.sphere_to_ref). `R` is the grid rotation of a rotated mesh (p R
+    brings a point to the unrotated grid)."""
+    if R is not None:
+        p = p @ R.to(p.dtype)
     x, y, z = p[..., 0], p[..., 1], p[..., 2]
     ax, ay, az = torch.abs(x), torch.abs(y), torch.abs(z)
 
@@ -274,7 +375,26 @@ def get_cell_coords(ne: int, p):
     return ci, a0, b0
 
 
-def locate(mesh: CubedSphereMesh, p):
-    """Point location with reference coordinates: (ci, a, b), the (a, b)
-    being the O(h^2) equiangular estimate (callers polish with Newton)."""
-    return get_cell_coords(mesh.ne, p)
+def locate(mesh: CubedSphereMesh, p, max_its: int = 10):
+    """Point location with reference coordinates: (ci, a, b). On a uniform
+    mesh the (a, b) are the O(h^2) equiangular estimate (callers polish
+    with Newton). On a nonuniform mesh: invert the warp, take the
+    equiangular candidate and select among its ring-1 neighbours by the
+    Newton residual, penalizing solutions outside the cell; the (a, b) are
+    then converged."""
+    if not mesh.nonuni:
+        return get_cell_coords(mesh.ne, p, mesh.rot_R)
+    p0 = _warp_points(p, mesh.warp_R, inverse=True)
+    c0 = get_cell_coords(mesh.ne, p0, mesh.rot_R)[0]
+    cands = mesh.ring1[c0]                                # (..., 9)
+    corners = mesh.corners[cands].to(p.dtype)             # (..., 9, 4, 3)
+    p9 = p[..., None, :].expand(cands.shape + (3,))
+    a, b = sqr.sphere_to_ref(corners, p9, max_its=max_its)
+    rec = sqr.ref_to_sphere(corners, a, b)
+    resid = torch.sqrt(sphere.norm2(rec - p9))
+    outside = torch.maximum(torch.abs(a), torch.abs(b)) > 1.0 + 1e-10
+    score = resid + torch.where(outside, 1e3, 0.0)
+    score = torch.where(mesh.ring1_mask[c0], score, float("inf"))
+    k = torch.argmin(score, dim=-1, keepdim=True)
+    return (torch.gather(cands, -1, k)[..., 0],
+            torch.gather(a, -1, k)[..., 0], torch.gather(b, -1, k)[..., 0])

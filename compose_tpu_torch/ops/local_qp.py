@@ -2,6 +2,10 @@
 last axis, broadcast over leading batch axes:
 
     min_x sum_i w_i (x_i - y_i)^2  s.t.  a'x = b,  xlo <= x <= xhi
+
+caas (clip and assured sum, its sums bfb_sum's tree), caas_gsum (the same
+with a caller's global sum), clip_and_weighted_sum (CAAGS),
+solve_1eq_bc_qp (Newton on the multiplier) and solve_1eq_nonneg.
 """
 
 import torch
@@ -39,6 +43,72 @@ def caas(a, b, xlo, xhi, y, clip: bool = True):
     if clip:
         x = _clip(x, xlo, xhi)
     return x
+
+
+def caas_gsum(a, b, xlo, xhi, y, gsum, clip: bool = True):
+    """`caas` with a caller-supplied sum over the last axis (the ISL
+    caas-node filter passes bfb_sum over all DGLL nodes). Its sums follow
+    the JAX package's expressions: the headroom is xhi - x or x - xlo."""
+    x = _clip(y, xlo, xhi)
+    dm = b - gsum(a * x)
+    fac_hi = gsum(a * (xhi - x))
+    fac_lo = gsum(a * (x - xlo))
+    up = dm > 0
+    fac = torch.where(up, fac_hi, fac_lo)
+    pos = fac > 0
+    scale = torch.where(pos, dm / torch.where(pos, fac, 1.0), 0.0)
+    x = x + scale[..., None] * torch.where(up[..., None], xhi - x, x - xlo)
+    if clip:
+        x = _clip(x, xlo, xhi)
+    return x
+
+
+def clip_and_weighted_sum(a, b, xlo, xhi, y):
+    """CAAGS: like caas, but the discrepancy is spread along a blend of
+    the proportional-headroom direction v and the constant-per-node
+    direction w_i = 1/a_i (over nodes with headroom), the blend factor as
+    large as the bounds allow."""
+    x = _clip(y, xlo, xhi)
+    m = b - torch.sum(a * x, dim=-1)
+    up = m > 0
+    v = torch.where(up[..., None], xhi - x, x - xlo)
+    v_den = torch.sum(v * a, dim=-1)
+    has_room = torch.where(up[..., None], y < xhi, y > xlo)
+    wdir = torch.where(has_room, 1.0 / a, 0.0)
+    w_den = torch.sum(wdir * a, dim=-1)
+    v_den_safe = torch.where(v_den != 0, v_den, 1.0)
+    w_den_safe = torch.where(w_den > 0, w_den, 1.0)
+    vi = v / v_den_safe[..., None]
+    wi = wdir / w_den_safe[..., None]
+    bound = torch.where(up[..., None], xhi, xlo)
+    num = bound - x - m[..., None] * vi
+    den = m[..., None] * (wi - vi)
+    frac = torch.where((wi > vi) & (torch.abs(num) < torch.abs(den)),
+                       num / torch.where(den != 0, den, 1.0), 1.0)
+    alpha = torch.clamp_max(torch.amin(frac, dim=-1), 1.0)
+    alpha = torch.where(w_den > 0, alpha, 0.0)
+    blend = (1 - alpha[..., None]) * vi + alpha[..., None] * wi
+    step = torch.where((m != 0)[..., None] & (v_den != 0)[..., None],
+                       m[..., None] * torch.where(alpha[..., None] > 0,
+                                                  blend, vi), 0.0)
+    return _clip(x + step, xlo, xhi)
+
+
+def solve_1eq_nonneg(a, b, y, w, method: str = "caas"):
+    """Nonnegativity-constrained distribution: bounds [0, b / a_i]. Lanes
+    with b < 0 are infeasible and return y unchanged with info -1.
+    Returns (x, info)."""
+    xhi = b[..., None] / a
+    zero = torch.zeros_like(y)
+    if method == "caas":
+        x = caas(a, b, zero, xhi, y)
+        info = torch.ones(b.shape, dtype=torch.int32, device=b.device)
+    else:
+        x, info = solve_1eq_bc_qp(w, a, b, zero, xhi, y)
+    feasible = b >= 0
+    x = torch.where(feasible[..., None], x, y)
+    info = torch.where(feasible, info, -1).to(torch.int32)
+    return x, info
 
 
 def solve_1eq_bc_qp(w, a, b, xlo, xhi, y, max_its: int = 50):

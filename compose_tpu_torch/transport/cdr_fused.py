@@ -105,22 +105,20 @@ def limit_caas_plain(rhom, rho, Q, q_min, q_max, b):
 
 
 def limit_caas(rhom, rho, Q, q_min, q_max, b):
-    """K2. Shapes as limit_caas_plain, f64 or f32; np2 must be 16 for the
-    kernel. CPU tensors: the plain version. CUDA tensors: the kernel
+    """K2. Shapes as limit_caas_plain, f64 or f32, any np2 from 4 to 256.
+    CPU tensors: the plain version. CUDA tensors: the kernel
     (csrc/limit_caas.cu) of their dtype, bitwise equal to the plain
     version."""
     if not Q.is_cuda:
         return limit_caas_plain(rhom, rho, Q, q_min, q_max, b)
     nt, ncell, np2 = Q.shape
-    if np2 != 16:
-        raise NotImplementedError(f"limit_caas kernel: np2={np2} (needs 16)")
     dt = Q.dtype
-    out = torch.empty_like(Q)
-    args = [_native.require(x, n, dt, s) for x, n, s in (
-        (rhom, "rhom", (ncell, np2)), (rho, "rho", (ncell, np2)),
-        (Q, "Q", Q.shape), (q_min, "q_min", Q.shape),
-        (q_max, "q_max", Q.shape), (b, "b", (nt, ncell)),
-        (out, "out", Q.shape))]
-    _native.kernel("limit_caas", dt)(*args, nt, ncell,
+    # The contiguous operands stay referenced until the launch is queued.
+    ops = [x.contiguous() for x in (rhom, rho, Q, q_min, q_max, b)]
+    out = torch.empty_like(ops[2])
+    args = [_native.require(x, n, dt, s) for x, n, s in zip(
+        ops + [out], ("rhom", "rho", "Q", "q_min", "q_max", "b", "out"),
+        [(ncell, np2)] * 2 + [Q.shape] * 3 + [(nt, ncell), Q.shape])]
+    _native.kernel("limit_caas", dt)(*args, nt, ncell, np2,
                                      stream=_native.stream_of(Q))
     return out

@@ -1,6 +1,9 @@
 """Trajectory (departure point) integration (compose_tpu.transport.timeint):
 all nodes in lockstep with `nsub` fixed Dormand-Prince RK5(4) substeps, in
-cartesian xyz, then normalized back onto the sphere.
+cartesian xyz, then normalized back onto the sphere; the 2-evaluation
+midpoint study integrator (`integrate_line`); and the interpolation of a
+coarse velocity grid's departure points to the fine nodes
+(`interp_departure`).
 """
 
 from ..config import np_scalar
@@ -48,3 +51,24 @@ def integrate(velocity, ts: float, tf: float, p, nsub: int = 8):
     for i in range(nsub):
         p = _dopri5_step(velocity, ts + i * dt, dt, p)
     return sphere.normalize(p)
+
+
+def integrate_line(velocity, ts: float, tf: float, p):
+    """The 'line' study integrator: a 2-iteration midpoint fixed point, two
+    velocity evaluations per transport step."""
+    dt = tf - ts
+    th = 0.5 * (ts + tf)
+    uh = p
+    for _ in range(2):
+        f = velocity(th, uh)
+        uh = p + (0.5 * dt) * f
+    return sphere.normalize(p + dt * f)
+
+
+def interp_departure(vw, cells):
+    """sum_k vw[..., k] * cells[..., k, :] as an explicit left-to-right
+    chain. vw: (..., m); cells: (..., m, 3)."""
+    acc = vw[..., 0, None] * cells[..., 0, :]
+    for k in range(1, vw.shape[-1]):
+        acc = acc + vw[..., k, None] * cells[..., k, :]
+    return acc

@@ -21,11 +21,13 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from compose_tpu.ops import local_qp as local_qp_jax
 from compose_tpu.ops import reduce as reduce_jax
 from compose_tpu.transport import dss as dss_jax
 from compose_tpu.transport import limiter as limiter_jax
 from compose_tpu.transport import spf as spf_jax
 from compose_tpu.transport.dss_face import FaceDss
+from compose_tpu_torch.ops import local_qp as local_qp_torch
 from compose_tpu_torch.ops import reduce as reduce_torch
 from compose_tpu_torch.transport import cdr_fused, dss as dss_torch
 from compose_tpu_torch.transport import limiter as limiter_torch
@@ -210,3 +212,51 @@ def test_limit_density_vs_jax(qp_branch):
     mass = (F * out).sum(-1)
     tgt = (F * rho).sum(-1) + extra
     assert np.all(np.abs(mass - tgt) <= 1e2 * EPS * np.abs(tgt).max())
+
+
+def _qp_inputs(seed, shape=(4, 30, 16)):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.5, 1.5, shape)
+    xlo = rng.uniform(0.0, 0.5, shape)
+    xhi = xlo + rng.uniform(0.0, 0.5, shape)
+    y = rng.uniform(-0.2, 1.2, shape)
+    # Targets inside and outside [sum a xlo, sum a xhi].
+    b = (a * rng.uniform(-0.1, 1.1, shape)).sum(-1)
+    return a, b, xlo, xhi, y
+
+
+def test_caas_gsum_vs_jax():
+    # The caas-node global CAAS over all DGLL slots with bfb_sum: the sums
+    # are bitwise (same tree), the rest elementwise; 1e-13 stated.
+    a, b, xlo, xhi, y = _qp_inputs(21, (3, 1350))
+    b = (a * (0.3 * xlo + 0.7 * xhi)).sum(-1) * np.array([0.9, 1.0, 1.2])
+    xj = local_qp_jax.caas_gsum(*map(jnp.asarray, (a, b, xlo, xhi, y)),
+                                gsum=reduce_jax.bfb_sum)
+    xt = local_qp_torch.caas_gsum(*map(t64, (a, b, xlo, xhi, y)),
+                                  gsum=reduce_torch.bfb_sum)
+    assert np.abs(np.asarray(xj) - np_(xt)).max() <= 1e-13
+    assert np.all(np_(xt) >= xlo) and np.all(np_(xt) <= xhi)
+
+
+def test_clip_and_weighted_sum_vs_jax():
+    a, b, xlo, xhi, y = _qp_inputs(22)
+    xj = local_qp_jax.clip_and_weighted_sum(*map(jnp.asarray,
+                                                 (a, b, xlo, xhi, y)))
+    xt = local_qp_torch.clip_and_weighted_sum(*map(t64, (a, b, xlo, xhi, y)))
+    assert np.abs(np.asarray(xj) - np_(xt)).max() <= 1e-13
+    assert np.all(np_(xt) >= xlo) and np.all(np_(xt) <= xhi)
+
+
+@pytest.mark.parametrize("method", ["caas", "mn2"])
+def test_solve_1eq_nonneg_vs_jax(method):
+    # Lanes with b < 0 are infeasible (info -1, y returned).
+    a, b, _, _, y = _qp_inputs(23)
+    b = b - np.median(b)
+    assert (b < 0).any() and (b >= 0).any()
+    w = np.random.default_rng(24).uniform(0.5, 1.5, a.shape)
+    xj, ij = local_qp_jax.solve_1eq_nonneg(*map(jnp.asarray, (a, b, y, w)),
+                                           method=method)
+    xt, it = local_qp_torch.solve_1eq_nonneg(*map(t64, (a, b, y, w)),
+                                             method=method)
+    assert np.array_equal(np.asarray(ij), np_(it))
+    assert np.abs(np.asarray(xj) - np_(xt)).max() <= 1e-13

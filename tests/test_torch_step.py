@@ -179,12 +179,19 @@ def test_observer_invariants(runs):
 
 
 def test_unported_config_raises():
+    # What the port still lacks: mixed geometry/interpolation precisions,
+    # the mixed isl method (an external target density), IR/CDG,
+    # p-refinement and subcell meshes.
     mj, mt = meshes(4)
-    for bad in (dict(filter="caas-node"), dict(limiter="caags"),
-                dict(rho_isl=False), dict(geom_dtype="f32"),
-                dict(timeint="line")):
-        with pytest.raises(NotImplementedError):
-            IslT(mt, gallery_torch.create_wind("divergent"),
-                 CfgT(ne=4, **bad))
     with pytest.raises(NotImplementedError):
-        driver_torch.run(ne=2, nsteps=1, method="ir", device="cpu")
+        IslT(mt, gallery_torch.create_wind("divergent"),
+             CfgT(ne=4, geom_dtype="f32"))
+    st = IslT(mt, gallery_torch.create_wind("divergent"), CfgT(ne=4))
+    rho = torch.ones((mt.ncell, mt.np2), dtype=torch.float64)
+    q = driver_torch.init_tracers(mt, ["gaussianhills"])
+    with pytest.raises(NotImplementedError):
+        st.step(rho, q, 0.0, 3600.0, rho_tgt=rho)
+    for kw in (dict(method="ir"), dict(method="isl"), dict(prefine=5),
+               dict(mesh_type="gllsubcell")):
+        with pytest.raises(NotImplementedError):
+            driver_torch.run(ne=2, nsteps=1, device="cpu", **kw)
