@@ -1,16 +1,25 @@
-"""End-to-end transport runs (compose_tpu.driver), for the ISL methods pisl
-and pislu (pisl with the plain GLL interpolant) with every ISL option:
-mesh + wind + initial conditions, the time loop with the reference's
+"""End-to-end transport runs (compose_tpu.driver): the ISL methods pisl
+and pislu (pisl with the plain GLL interpolant) with every ISL option, the
+cell-integrated methods ir and cdg, and the mixed method isl (density by
+the cell-integrated remap, tracers by ISL); geometric and subcell meshes.
+Mesh + wind + initial conditions, the time loop with the reference's
 per-step checks on tracer 0 (mass in the measure the model conserves:
-sphere for dmc es, else GLL; bounds, or nonnegativity alone for a
-positive-only filter), and the final error norms of the reference's
-`print_error`. The mixed `isl` method, IR/CDG, p-refinement and subcell
-meshes are not ported and raise NotImplementedError.
+sphere for dmc es under ISL, the IR measure `IrTransport.F_mass` under
+ir/cdg, else GLL; bounds, or nonnegativity alone for a positive-only
+filter), and the final error norms of the reference's `print_error`.
+p-refinement raises NotImplementedError.
 
 `x64=False` is the single-precision route, the counterpart of the JAX
 package's COMPOSE_TPU_X64=0: the state, the mesh tables, the geometry and
-the CDR are all f32. The checks and error norms are measured in f64 in
-both routes, so that they do not measure their own rounding.
+the CDR are all f32 (ISL methods only). The checks and error norms are
+measured in f64 in both routes, so that they do not measure their own
+rounding.
+
+`perturb_rho` adds a mass-free random perturbation to the density after
+each step. Its random numbers come from a torch.Generator seeded with the
+step index (the JAX package draws them from jax.random.PRNGKey(step)), so
+such a run meets the reference's tracer-consistency bars but is not
+pointwise equal to the JAX run.
 """
 
 import dataclasses
@@ -25,6 +34,7 @@ from .mesh import cubed_sphere
 from .ops import sphere
 from .ops.reduce import bfb_sum
 from .transport import gallery
+from .transport.ir import IrConfig, IrTransport
 from .transport.isl import IslConfig, IslTransport
 
 
@@ -107,19 +117,35 @@ def summarize(mesh, f0, rho0, f, rho, et_timestep=0.0,
     )
 
 
+def _perturb(mesh, rho, amount, step):
+    """Mass-free random density perturbation: uniform [-1, 1) numbers
+    from a CPU generator seeded with `step` (the same on every device),
+    the F-weighted mean projected out, scaled so that rho stays positive."""
+    gen = torch.Generator().manual_seed(step)
+    u = (2.0 * torch.rand(rho.shape, generator=gen, dtype=F64) - 1.0).to(
+        rho.device)
+    Fg = mesh.dgbfi_gll
+    u = u - Fg * (torch.sum(Fg * u) / torch.sum(Fg * Fg))
+    return rho + (amount * torch.amin(rho) / torch.amax(torch.abs(u))) * u
+
+
 def run(ne=10, np_=4, nsteps=12, T_days=12.0, ics=("gaussianhills",),
         ode="divergent", method="pisl", filter_="qlt", limiter="mn2",
         basis="GllNodal", nsub=8, dmc="none", geom_dtype="f64",
         interp_dtype="f64", verbose=True, fitext=False, rotate_grid=False,
-        timeint="exact", nonuni=False, prefine=0, mesh_type="geometric", *,
-        x64=True, device="cuda"):
-    """One slmmir-style ISL run on `device` (the current CUDA device
-    unless the CPU is asked for), in f64 or, with x64=False, in f32;
-    returns RunOutput."""
-    if method not in ("pisl", "pislu"):
-        raise NotImplementedError(f"method '{method}' is not ported")
+        timeint="exact", nonuni=False, prefine=0, mesh_type="geometric",
+        tq=None, d2c=True, perturb_rho=0.0, *, x64=True, device="cuda"):
+    """One slmmir-style run on `device` (the current CUDA device unless
+    the CPU is asked for), in f64 or, with x64=False (ISL methods), in f32;
+    returns RunOutput. `tq` and `d2c` are the cell-integrated methods'
+    T-fill quadrature order and continuity option."""
+    if method not in ("pisl", "pislu", "ir", "cdg", "isl"):
+        raise ValueError(f"unknown method '{method}'")
     if prefine:
         raise NotImplementedError(f"prefine {prefine} is not ported")
+    if not x64 and method in ("ir", "cdg", "isl"):
+        raise NotImplementedError(f"x64=False with method '{method}' is not "
+                                  "ported")
     # Positive-only filter spellings: only qlt-pve is positive-only;
     # caas-pve is the caas redistribution with the standard bounds.
     positive_only = filter_ == "qlt-pve"
@@ -138,15 +164,40 @@ def run(ne=10, np_=4, nsteps=12, T_days=12.0, ics=("gaussianhills",),
     mesh = cubed_sphere.build(ne, np_, basis, device=dev, dtype=dtype,
                               rotate=rotate, nonuni=nonuni,
                               mesh_type=mesh_type)
+    # Subcell meshes refine the grid and force np 2.
+    ne, np_, basis = mesh.ne, mesh.np_, mesh.basis_name
+    if mesh.is_subcell and dmc in ("f", "ef") and method == "ir":
+        # IR's density factor mixes the per-target ref-square measures of
+        # neighbouring subcells of different sizes: the reference switches
+        # to CDG (slmmir.cpp:1837-1843).
+        if verbose:
+            print("WARNING: Switching to CDG; (QOF, IR) is not supported "
+                  "for subcell mesh.")
+        method = "cdg"
     wind = gallery.create_wind(ode)
-    cfg = IslConfig(ne=ne, np_=np_, basis="Gll" if method == "pislu"
-                    else basis, filter=filter_, limiter=limiter,
-                    rho_isl=True, nsub=nsub,
-                    dmc="f" if dmc == "none" else dmc,
-                    positive_only=positive_only, fitext=fitext,
-                    timeint=timeint, geom_dtype=geom_dtype,
-                    interp_dtype=interp_dtype, rotate=rotate)
-    model = IslTransport(mesh, wind, cfg)
+    rho_remapper = None
+    if method in ("ir", "cdg"):
+        model = IrTransport(mesh, wind, IrConfig(
+            ne=ne, np_=np_, method=method, dmc=dmc, filter=filter_,
+            limiter=limiter, nsub=nsub, tq=tq, d2c=d2c))
+        F_check = model.F_mass
+    else:
+        if method == "isl":
+            # The density by the cell-integrated remap, with a local mass
+            # equality in the GLL measure unless a dmc is given.
+            rho_remapper = IrTransport(mesh, wind, IrConfig(
+                ne=ne, np_=np_, method="ir",
+                dmc="eh" if dmc == "none" else dmc, filter="none",
+                limiter="none", nsub=nsub, tq=tq))
+        cfg = IslConfig(ne=ne, np_=np_, basis="Gll" if method == "pislu"
+                        else basis, filter=filter_, limiter=limiter,
+                        rho_isl=method != "isl", nsub=nsub,
+                        dmc="f" if dmc == "none" else dmc,
+                        positive_only=positive_only, fitext=fitext,
+                        timeint=timeint, geom_dtype=geom_dtype,
+                        interp_dtype=interp_dtype, rotate=rotate)
+        model = IslTransport(mesh, wind, cfg)
+        F_check = mesh.dgbfi_sphere if dmc == "es" else mesh.dgbfi_gll
 
     rho = torch.ones((mesh.ncell, mesh.np2), dtype=dtype, device=dev)
     q = init_tracers(mesh, ics)
@@ -154,8 +205,7 @@ def run(ne=10, np_=4, nsteps=12, T_days=12.0, ics=("gaussianhills",),
     T = constants.day2sec(T_days)
     dt = T / nsteps
     # The per-step mass check's measure: the one the model conserves.
-    F_check = (mesh.dgbfi_sphere if dmc == "es"
-               else mesh.dgbfi_gll).reshape(-1).to(F64)
+    F_check = F_check.reshape(-1).to(F64)
 
     def tracer0_stats(q, rho):
         # One host read per step: mass (bfb tree, in f64), min, max of
@@ -171,7 +221,13 @@ def run(ne=10, np_=4, nsteps=12, T_days=12.0, ics=("gaussianhills",),
     for step in range(nsteps):
         ts = dt * step
         tf = T if step == nsteps - 1 else ts + dt
-        rho, q = model.step(rho, q, ts, tf)
+        if rho_remapper is not None:
+            rho, q = model.step(rho, q, ts, tf,
+                                rho_tgt=rho_remapper.remap_rho(rho, ts, tf))
+        else:
+            rho, q = model.step(rho, q, ts, tf)
+        if perturb_rho:
+            rho = _perturb(mesh, rho, perturb_rho, step)
         mass, qmin, qmax = tracer0_stats(q, rho)
         max_step_mass_err = max(max_step_mass_err,
                                 abs(mass - mass_prev) / max(1.0, abs(mass)))

@@ -1,7 +1,9 @@
 """Quasiuniform equiangular cubed-sphere spectral-element mesh
 (compose_tpu.mesh.cubed_sphere), optionally rotated (`rotate`) or warped
-by the reference's nonuniform map (`nonuni`). Subcell meshes are not
-ported.
+by the reference's nonuniform map (`nonuni`), or refined into subcells
+(`mesh_type` gllsubcell | runisubcell: each geometric parent cell split
+into (np-1)^2 np=2 subcells at the GLL or uniform break points of its
+reference square).
 
 Cell (face, iy, ix) has id face*ne^2 + iy*ne + ix; its np x np nodes are the
 normalized bilinear images of the reference-square grid over the cell
@@ -15,7 +17,9 @@ indexing wants int64).
 Point location is O(1) on uniform meshes (the equiangular index, after
 un-rotating the point). On a nonuniform mesh it inverts the analytic warp,
 takes the equiangular candidate, and picks among its ring-1 neighbours
-(the cells sharing a corner with it) by the Newton inverse.
+(the cells sharing a corner with it) by the Newton inverse. On a subcell
+mesh it locates the parent cell first (equiangular index, Newton on the
+parent), then the subcell by a sorted search over the static breaks.
 """
 
 import dataclasses
@@ -92,6 +96,15 @@ class CubedSphereMesh:
     warp_R: torch.Tensor = None  # (3, 3) nonuniform warp rotation, or None
     ring1: torch.Tensor = None   # (ncell, 9) int64 corner-sharing cells
     ring1_mask: torch.Tensor = None  # (ncell, 9) bool
+    # Subcell meshes: the parent mesh's ne (0: not a subcell mesh), the
+    # reference-square break points and the parent cells' corners.
+    sub_parent_ne: int = 0
+    sub_breaks: torch.Tensor = None          # (np_geo,)
+    sub_parent_corners: torch.Tensor = None  # (6 * parent ne^2, 4, 3)
+
+    @property
+    def is_subcell(self):
+        return self.sub_parent_ne > 0
 
     @property
     def np2(self):
@@ -105,8 +118,9 @@ class CubedSphereMesh:
 _TABLES = ("corners", "cell_nodes_xyz", "dgll2cgll", "cgll_xyz", "cgll_rep",
            "c2d_idx", "c2d_mask", "jac_node", "dgbfi_gll", "dgbfi_sphere",
            "basis_x", "basis_w")
-# Tables of rotated and nonuniform meshes; None on the others.
-_OPTIONAL = ("rot_R", "warp_R", "ring1", "ring1_mask")
+# Tables of rotated, nonuniform and subcell meshes; None on the others.
+_OPTIONAL = ("rot_R", "warp_R", "ring1", "ring1_mask", "sub_breaks",
+             "sub_parent_corners")
 
 
 def _to_tensor(a, device, dtype):
@@ -121,11 +135,10 @@ def _to_tensor(a, device, dtype):
 def from_numpy(tables: dict, device="cuda", dtype=F64) -> CubedSphereMesh:
     """Mesh from numpy tables (e.g. a compose_tpu mesh's fields converted
     with np.asarray): keys ne, np_ and the table names of CubedSphereMesh;
-    rot_R, warp_R, ring1 and ring1_mask may be absent or None. Float tables
-    are cast to `dtype`. Subcell meshes are not ported."""
+    the optional tables (rot_R, warp_R, ring1, ring1_mask, sub_breaks,
+    sub_parent_corners) and sub_parent_ne may be absent or None. Float
+    tables are cast to `dtype`."""
     dev = resolve_device(device)
-    if tables.get("sub_parent_ne"):
-        raise NotImplementedError("subcell meshes are not ported")
     ne, np_ = int(tables["ne"]), int(tables["np_"])
     t = {k: _to_tensor(tables[k], dev, dtype) for k in _TABLES}
     t.update({k: None if tables.get(k) is None
@@ -133,10 +146,12 @@ def from_numpy(tables: dict, device="cuda", dtype=F64) -> CubedSphereMesh:
     return CubedSphereMesh(
         ne=ne, np_=np_, ncell=6 * ne * ne, cnn=int(t["cgll_xyz"].shape[0]),
         basis_name=str(tables.get("basis_name", "GllNodal")), device=dev,
-        dtype=dtype, **t)
+        dtype=dtype, sub_parent_ne=int(tables.get("sub_parent_ne") or 0),
+        **t)
 
 
 _BUILD_CACHE = {}
+_MESH_TYPES = ("geometric", "gllsubcell", "runisubcell")
 
 
 def form_rotation(axis, angle):
@@ -172,17 +187,21 @@ def build(ne: int, np_: int = 4, basis_name: str = "GllNodal", *,
           mesh_type: str = "geometric") -> CubedSphereMesh:
     """Cached mesh construction on `device` (the current CUDA device unless
     the CPU is asked for), float tables in `dtype`. `rotate` is an optional
-    (axis, angle) grid rotation; `nonuni` applies the nonuniform warp.
-    Subcell mesh types raise NotImplementedError."""
-    if mesh_type != "geometric":
-        raise NotImplementedError(f"mesh_type '{mesh_type}' is not ported")
+    (axis, angle) grid rotation; `nonuni` applies the nonuniform warp;
+    `mesh_type` gllsubcell or runisubcell refines each of the 6 ne^2
+    parent cells into (np-1)^2 subcells and forces np 2 (the mesh's ne
+    and np_ are then the refined ones)."""
+    if mesh_type not in _MESH_TYPES:
+        raise ValueError(f"mesh_type {mesh_type!r}: expected "
+                         f"{' | '.join(_MESH_TYPES)}")
     dev = resolve_device(device)
     rot = None if rotate is None else (tuple(rotate[0]), float(rotate[1]))
-    key = (ne, np_, basis_name, tq_order, rot, bool(nonuni), str(dev), dtype)
+    key = (ne, np_, basis_name, tq_order, rot, bool(nonuni), mesh_type,
+           str(dev), dtype)
     if key not in _BUILD_CACHE:
         _BUILD_CACHE[key] = from_numpy(
-            _build_tables(ne, np_, basis_name, tq_order, rot, bool(nonuni)),
-            dev, dtype)
+            _build_tables(ne, np_, basis_name, tq_order, rot, bool(nonuni),
+                          mesh_type), dev, dtype)
     return _BUILD_CACHE[key]
 
 
@@ -215,9 +234,16 @@ def _ring1(ne):
 
 
 @functools.lru_cache(maxsize=None)
-def _build_tables(ne, np_, basis_name, tq_order, rotate=None, nonuni=False):
+def _build_tables(ne, np_, basis_name, tq_order, rotate=None, nonuni=False,
+                  mesh_type="geometric"):
     """The mesh tables as numpy arrays (the arithmetic of compose_tpu's
-    _build for geometric meshes), shared by every device and dtype."""
+    _build), shared by every device and dtype."""
+    subcell = mesh_type != "geometric"
+    ne_geo, np_geo = ne, np_
+    if subcell:
+        if nonuni:
+            raise NotImplementedError("subcell + nonuni is not supported")
+        np_, basis_name = 2, "Gll"   # np=2 transport on the subcells
     ncell = 6 * ne * ne
     np2 = np_ * np_
     bas = basis_mod.create(basis_name, np_)
@@ -250,6 +276,36 @@ def _build_tables(ne, np_, basis_name, tq_order, rotate=None, nonuni=False):
         warp_R = form_rotation((1.0, 1.0, 1.0), 0.2 * np.pi)
         corners = _warp_points(corners, warp_R)
         ring1, ring1_mask = _ring1(ne)
+    sub_breaks = sub_parent_corners = None
+    if subcell:
+        # Subcell corners: bilinear-sphere images of the break grid; a
+        # shared edge evaluates to the same floats from both parents.
+        sub_parent_corners = corners.copy()
+        if mesh_type == "gllsubcell":
+            sub_breaks = np.asarray(basis_mod.gll_nodes_weights(np_geo)[0])
+        else:
+            sub_breaks = np.linspace(-1.0, 1.0, np_geo)
+        ns = np_geo - 1
+        AX0, AY0 = np.meshgrid(sub_breaks[:-1], sub_breaks[:-1],
+                               indexing='xy')
+        AX1, AY1 = np.meshgrid(sub_breaks[1:], sub_breaks[1:], indexing='xy')
+
+        def bil(a, b):
+            qtr = 0.25
+            Nb = np.stack([qtr * (1 - a) * (1 - b), qtr * (1 + a) * (1 - b),
+                           qtr * (1 + a) * (1 + b), qtr * (1 - a) * (1 + b)],
+                          axis=-1)
+            p = np.einsum('yxk,ckd->cyxd', Nb, corners)
+            return p / np.linalg.norm(p, axis=-1, keepdims=True)
+
+        pts = np.stack([bil(AX0, AY0), bil(AX1, AY0), bil(AX1, AY1),
+                        bil(AX0, AY1)], axis=-2)
+        # Global (face, IY, IX) lattice order with IY = iy * ns + sy.
+        ne = ne_geo * ns
+        pts = pts.reshape(6, ne_geo, ne_geo, ns, ns, 4, 3).transpose(
+            0, 1, 3, 2, 4, 5, 6)
+        corners = np.ascontiguousarray(pts.reshape(6 * ne * ne, 4, 3))
+        ncell = 6 * ne * ne
 
     # Cell nodes: bilinear-sphere map of the GLL reference grid, [j, i].
     A, B = np.meshgrid(gx, gx, indexing='xy')
@@ -311,7 +367,9 @@ def _build_tables(ne, np_, basis_name, tq_order, rotate=None, nonuni=False):
                 c2d_idx=c2d_idx, c2d_mask=c2d_mask, jac_node=jac_node,
                 dgbfi_gll=dgbfi_gll, dgbfi_sphere=dgbfi_sphere,
                 basis_x=bas.x.numpy(), basis_w=bas.w.numpy(), rot_R=rot_R,
-                warp_R=warp_R, ring1=ring1, ring1_mask=ring1_mask)
+                warp_R=warp_R, ring1=ring1, ring1_mask=ring1_mask,
+                sub_parent_ne=ne_geo if subcell else 0, sub_breaks=sub_breaks,
+                sub_parent_corners=sub_parent_corners)
 
 
 def _dgbfi_sphere(corners, bary, qw, np_):
@@ -375,13 +433,47 @@ def get_cell_coords(ne: int, p, R=None):
     return ci, a0, b0
 
 
+def get_cell_idx(ne: int, p, R=None):
+    """O(1) point -> cell id (int64) on the uniform equiangular mesh."""
+    return get_cell_coords(ne, p, R)[0]
+
+
+def _locate_subcell(mesh, p):
+    """Parent cell by the equiangular index and 6 Newton iterations on its
+    corners, then the subcell by a sorted search over the breaks; (a, b)
+    rescaled to the subcell are O(h^2) estimates."""
+    pne = mesh.sub_parent_ne
+    ci_p, a0, b0 = get_cell_coords(pne, p, mesh.rot_R)
+    pc = mesh.sub_parent_corners[ci_p].to(p.dtype)
+    a, b = sqr.sphere_to_ref(pc, p, a0=a0, b0=b0, max_its=6)
+    br = mesh.sub_breaks.to(a.dtype)
+    ns = br.shape[0] - 1
+
+    def sub(u):
+        k = torch.searchsorted(br, u.contiguous(), right=True) - 1
+        k = torch.clamp(k, 0, ns - 1)
+        lo, hi = br[k], br[k + 1]
+        return k, 2.0 * (u - lo) / (hi - lo) - 1.0
+
+    sx, a_s = sub(a)
+    sy, b_s = sub(b)
+    f = ci_p // (pne * pne)
+    r = ci_p % (pne * pne)
+    iy, ix = r // pne, r % pne
+    NE = pne * ns
+    ci = f * NE * NE + (iy * ns + sy) * NE + (ix * ns + sx)
+    return ci, a_s, b_s
+
+
 def locate(mesh: CubedSphereMesh, p, max_its: int = 10):
     """Point location with reference coordinates: (ci, a, b). On a uniform
     mesh the (a, b) are the O(h^2) equiangular estimate (callers polish
     with Newton). On a nonuniform mesh: invert the warp, take the
     equiangular candidate and select among its ring-1 neighbours by the
     Newton residual, penalizing solutions outside the cell; the (a, b) are
-    then converged."""
+    then converged. On a subcell mesh: parent first (_locate_subcell)."""
+    if mesh.is_subcell:
+        return _locate_subcell(mesh, p)
     if not mesh.nonuni:
         return get_cell_coords(mesh.ne, p, mesh.rot_R)
     p0 = _warp_points(p, mesh.warp_R, inverse=True)
@@ -398,3 +490,10 @@ def locate(mesh: CubedSphereMesh, p, max_its: int = 10):
     k = torch.argmin(score, dim=-1, keepdim=True)
     return (torch.gather(cands, -1, k)[..., 0],
             torch.gather(a, -1, k)[..., 0], torch.gather(b, -1, k)[..., 0])
+
+
+def locate_cell(mesh: CubedSphereMesh, p):
+    """Point -> containing cell id (int64)."""
+    if not mesh.nonuni and not mesh.is_subcell:
+        return get_cell_idx(mesh.ne, p, mesh.rot_R)
+    return locate(mesh, p)[0]

@@ -1,107 +1,38 @@
-"""Triangle quadrature for the spherical basis-function integrals.
+"""Triangle quadrature rules (compose_tpu.ops.quadrature).
 
-The mesh's ``dgbfi_sphere`` table integrates each GLL basis function over
-its cell with the order-18 triangle rule (Taylor, Wingate & Bos 2007; the
-published cubature data, embedded as constants). Only that order is carried
-here: it is the one the mesh build uses.
+``get_coef(order)`` returns barycentric points (nq, 3) and weights (nq,)
+with sum(w) == 1, used as integral ~= 0.5 * sum_q w_q f(x_q) J(x_q). The
+published orders 4, 6, 8, 12, 14, 16, 18 and 20 come from the tables in
+``quadrature_tables``; any other order falls back to a Duffy
+(collapsed-coordinate) tensor-product Gauss-Legendre rule of that
+exactness.
 """
+
+import functools
 
 import numpy as np
 
-# order 18: tritay rule, 66 points
-_COORD18 = [
-    0.007070298904257704, 0.01167310596684123, 0.9812565951289011,
-    0.011850663674882633, 0.9810030858387937, 0.007146250486323669,
-    0.9777879749532336, 0.010696631709169787, 0.011515393337596661,
-    0.01219524251088655, 0.9382476983550452, 0.04955705913406827,
-    0.05032488609677561, 0.012662751841721434, 0.937012362061503,
-    0.9280526011094347, 0.059810940998380475, 0.012136457892184864,
-    0.9249853076476309, 0.013736329792672235, 0.06127836255969689,
-    0.06293437699921067, 0.9229527959405464, 0.014112827060242972,
-    0.014669535327987038, 0.06331073549926952, 0.9220197291727434,
-    0.8382214424436362, 0.011726510033460315, 0.15005204752290352,
-    0.012013229108727819, 0.15547205873234704, 0.8325147121589251,
-    0.15314779522589528, 0.8343293888982217, 0.012522815875882998,
-    0.012636445930745643, 0.8501638031956732, 0.13719975087358116,
-    0.1393556585998826, 0.012881635052197662, 0.8477627063479197,
-    0.8352671467001838, 0.15108016089587875, 0.013652692403937489,
-    0.4127643502438559, 0.010191787921657822, 0.5770438618344863,
-    0.011977384107352052, 0.2813372399303271, 0.7066853759623208,
-    0.27510555905090894, 0.7124374628501006, 0.01245697809899049,
-    0.711523343775097, 0.27630252508633896, 0.012174131138564082,
-    0.5696034918973097, 0.010965836856061837, 0.4194306712466284,
-    0.011127341464716667, 0.42891105178838945, 0.559961606746894,
-    0.5668103450100563, 0.42154205551147794, 0.01164759947846572,
-    0.4170523095567059, 0.5711258590444429, 0.01182183139885118,
-    0.011524214831188151, 0.5826868270510903, 0.40578895811772153,
-    0.7144408442418837, 0.013056780671324696, 0.2725023750867916,
-    0.26445270758026107, 0.013076040096391933, 0.722471252323347,
-    0.013357891834258173, 0.7263437062406745, 0.26029840192506737,
-    0.8681352654152988, 0.06872300686373822, 0.06314172772096294,
-    0.06270860611328977, 0.8652302101529414, 0.0720611837337688,
-    0.07609673850526848, 0.06485990710373686, 0.8590433543909947,
-    0.06277167043982737, 0.14834949433620712, 0.7888788352239655,
-    0.7881704602249778, 0.062435989839594204, 0.14939354993542797,
-    0.14722489455083976, 0.7871369011735022, 0.06563820427565803,
-    0.42252593827852053, 0.05191049216095118, 0.5255635695605283,
-    0.7740486145639152, 0.15431299274438395, 0.07163839269170089,
-    0.6760677769108911, 0.2617842745602947, 0.06214794852881417,
-    0.06745305723558681, 0.766725787281281, 0.16582115548313214,
-    0.06177765572336785, 0.2582103676627336, 0.6800119766138986,
-    0.1749418637070763, 0.06790659251474299, 0.7571515437781807,
-    0.058491788408859935, 0.5293578274804253, 0.4121503841107148,
-    0.6721450761629326, 0.06660361504841612, 0.26125130878865127,
-    0.5512088423565576, 0.058567546189943205, 0.39022361145349915,
-    0.2981838079828196, 0.06445353604108364, 0.6373626559760968,
-    0.2614278228787401, 0.6748138429151302, 0.06375833420612964,
-    0.05821595990681783, 0.3914602310368761, 0.5503238090563061,
-    0.06755701474299125, 0.6487701492307176, 0.2836728360262911,
-    0.5448326257038271, 0.39464982204080234, 0.06051755225537059,
-    0.39978726711302826, 0.5390137151933296, 0.06119901769364211,
-    0.15107827761804282, 0.16278950827847583, 0.6861322141034814,
-    0.1619595331460254, 0.6812436322640661, 0.15679683458990845,
-    0.6789654497959954, 0.15428328780202022, 0.1667512624019844,
-    0.4972468316160642, 0.25227277504445367, 0.25048039333948213,
-    0.24579278185497766, 0.2547981532407032, 0.49940906490431913,
-    0.2758396354718271, 0.14855805491943486, 0.575602309608738,
-    0.1412863039401966, 0.29302396064361924, 0.5656897354161842,
-    0.5753087153442316, 0.2808991272309908, 0.14379215742477763,
-    0.2660452871164122, 0.4820989592970838, 0.251855753586504,
-    0.28951550114037916, 0.564187824544361, 0.14629667431525983,
-    0.4202722769539322, 0.1307699644343884, 0.4489577586116794,
-    0.5519133391223261, 0.14796922219475678, 0.3001174386829171,
-    0.15475436877565685, 0.5638684222945926, 0.2813772089297506,
-    0.138678912478906, 0.4361157428790475, 0.42520534464204646,
-    0.37975460598258676, 0.36032639352854895, 0.25991900048886435,
-    0.4322573222023064, 0.42241883346742504, 0.14532384433026857,
-    0.25008754633806, 0.3719001833052385, 0.37801227035670143,
-    0.3738791708131812, 0.24136450069284623, 0.38475632849397257,
-]
-_WEIGHT18 = [
-    0.001258287849322552, 0.001263672600361209, 0.001663464766659172, 0.004075174606270012,
-    0.004306776287080819, 0.004389337308965301, 0.004854979278083793, 0.005123310595743368,
-    0.005419884417037201, 0.00646926950879231, 0.006816991179147562, 0.006923866407332497,
-    0.006971077005242425, 0.007206069998379916, 0.00768517277670156, 0.00812449011262803,
-    0.008485915214007324, 0.008504426621066338, 0.00854767603373253, 0.00869444272795485,
-    0.00872719812193591, 0.008920337864331938, 0.008922343193968446, 0.008952316877617482,
-    0.00906298781003517, 0.00923924194410124, 0.009289678218556065, 0.01016085758882769,
-    0.0106885830904588, 0.01159584270491392, 0.01372133554295597, 0.01451509611701859,
-    0.01472613692527127, 0.01497181258145377, 0.0153513474059391, 0.01626316829313562,
-    0.01639421042530506, 0.01656173375959963, 0.01730837634372872, 0.01735406869880698,
-    0.01736860247019273, 0.01742643812271074, 0.0174300780592984, 0.01777357849874442,
-    0.01800914981913493, 0.0181463142921393, 0.01909488510415974, 0.01961264000589436,
-    0.02413550629437514, 0.02449560607831186, 0.02486104169360984, 0.02535328684929062,
-    0.02548859970214835, 0.0260680031833597, 0.02617304374623586, 0.02622203417758513,
-    0.02637298224112941, 0.02647245318638137, 0.02711977972504153, 0.02717351017096441,
-    0.02735502743194343, 0.02786441729563326, 0.02888671321165472, 0.02926968908113495,
-    0.03045196253398069, 0.03186369822247498,
-]
+from . import quadrature_tables as _qt
 
 
+@functools.lru_cache(maxsize=None)
 def get_coef(order: int):
     """Return (bary, w): barycentric points (nq, 3) and weights summing to
-    1, used as integral ~= 0.5 * sum_q w_q f(x_q) J(x_q)."""
-    if order != 18:
-        raise NotImplementedError(f"triangle quadrature order {order}")
-    bary = np.asarray(_COORD18, dtype=np.float64).reshape(-1, 3)
-    return bary, np.asarray(_WEIGHT18, dtype=np.float64)
+    1, exact up to roundoff for polynomials of total degree <= order."""
+    if order in _qt.COORD:
+        bary = np.asarray(_qt.COORD[order], dtype=np.float64).reshape(-1, 3)
+        return bary, np.asarray(_qt.WEIGHT[order], dtype=np.float64)
+    # The Duffy map a1 = u, a2 = v (1 - u) has Jacobian (1 - u): a Gauss
+    # rule of n points per axis with n = ceil((order + 2) / 2).
+    n = (order + 3) // 2
+    xu, wu = np.polynomial.legendre.leggauss(n)
+    xu = 0.5 * (xu + 1.0)
+    wu = 0.5 * wu
+    u = xu[:, None] * np.ones_like(xu)[None, :]
+    v = np.ones_like(xu)[:, None] * xu[None, :]
+    w = (wu[:, None] * wu[None, :]) * (1.0 - u)
+    a1 = u
+    a2 = v * (1.0 - u)
+    a3 = 1.0 - a1 - a2
+    bary = np.stack([a1.ravel(), a2.ravel(), a3.ravel()], axis=-1)
+    return bary, 2.0 * w.ravel()

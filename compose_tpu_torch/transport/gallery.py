@@ -1,6 +1,8 @@
 """Analytic wind fields and initial conditions (compose_tpu.transport.gallery):
-the divergent deformational flow of Lauritzen et al. (GMD 2012) in its
-cartesian form, and the four initial conditions of the flagship run.
+the divergent and nondivergent deformational flows of Lauritzen et al.
+(GMD 2012) in their cartesian form; the initial conditions gaussianhills,
+cosinebells, slottedcylinders, xyztrig, correlatedcosinebells and
+constant.
 
 Winds take the time as a Python float and positions p (..., 3). The
 time-only trig is scalar, so it is evaluated on the host, rounded to p's
@@ -75,7 +77,24 @@ class DivergentWindField:
         return _uv2xyz(p, u, v)
 
 
-WINDS = {"divergent": DivergentWindField}
+class NonDivergentWindField:
+    """Nondivergent deformational flow (slmm_gallery.cpp:332-359):
+        u = 10 R/T sin^2(lam') sin(2 th) cos(pi t/T) + 2 pi R/T cos(th)
+        v = 10 R/T sin(2 lam') cos(th) cos(pi t/T)."""
+
+    T = constants.day2sec(12)
+
+    def velocity(self, t, p):
+        T = self.T
+        sinth, costh, sinlp, coslp, cost = _trig_frame(t, p, T)
+        sin2lat = 2 * sinth * costh
+        v = 10 / T * (2 * sinlp * coslp) * costh * cost
+        u = 1 / T * (10 * sinlp * sinlp * sin2lat * cost + 2 * np.pi * costh)
+        return _uv2xyz(p, u, v)
+
+
+WINDS = {"divergent": DivergentWindField,
+         "nondivergent": NonDivergentWindField}
 
 
 def create_wind(name: str):
@@ -151,8 +170,18 @@ def slottedcylinders(lat, lon):
                        torch.full_like(lat, b))
 
 
+def correlatedcosinebells(lat, lon):
+    c = cosinebells(lat, lon)
+    return -0.8 * (c * c) + 0.9
+
+
+def constant(lat, lon):
+    return torch.full_like(lat, 0.42)
+
+
 ICS = {"xyztrig": xyztrig, "gaussianhills": gaussianhills,
-       "cosinebells": cosinebells, "slottedcylinders": slottedcylinders}
+       "cosinebells": cosinebells, "slottedcylinders": slottedcylinders,
+       "correlatedcosinebells": correlatedcosinebells, "constant": constant}
 
 
 def initial_condition(name: str, lat, lon):

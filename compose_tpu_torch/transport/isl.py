@@ -21,15 +21,18 @@ One step:
      (K2 for caas) and one CAAS over all DGLL nodes; positive-only filters
      limit tracer masses to nonnegativity;
   5. mixing-ratio DSS (K3, or K4 in f32), weighted with the model's mass
-     measure F.
+     measure F. In the mixed `isl` method (rho_isl=False, the density
+     remapped by IrTransport.remap_rho and passed as `rho_tgt`) the general
+     CDR instead runs the DSS on the density and the tracer masses, both
+     weighted with F (K3 twice), forms q = Q / rho and clips it to the
+     coincident-node range of the pre-DSS q.
 Steps 3-5 follow the JAX package's general CDR branch (isl.py:493-711).
 
 The working float type is the mesh's: f64, or f32 on the single-precision
 route (the JAX package with x64 off, where every f64 is f32). In f64 the
 geometry and interpolation may also run in f32 (geom_dtype = interp_dtype
 = "f32"), their invariants then enforced by the f64 CDR. Mixed
-geom/interp precisions and the mixed `isl` method (an externally remapped
-target density) raise NotImplementedError. Tracers are a dense leading
+geom/interp precisions raise NotImplementedError. Tracers are a dense leading
 axis; rho is (ncell, np2), q is (nt, ncell, np2), both in the mesh's dtype
 on its device.
 """
@@ -140,12 +143,12 @@ class IslTransport:
 
     # ------------------------------------------------------------------
     def step(self, rho, q, ts: float, tf: float, rho_tgt=None):
-        """Advance one transport step from ts to tf. Returns (rho', q')."""
-        if rho_tgt is not None:
-            raise NotImplementedError(
-                "an external target density (the mixed isl method) is not "
-                "ported")
-        return self._step_impl(rho, q, ts, tf)
+        """Advance one transport step from ts to tf. Returns (rho', q').
+        `rho_tgt`: the target density of the mixed `isl` method (with
+        rho_isl=False; without it the density is held)."""
+        if rho_tgt is not None and self.config.rho_isl:
+            raise ValueError("rho_tgt needs rho_isl=False")
+        return self._step_impl(rho, q, ts, tf, rho_tgt)
 
     # ------------------------------------------------------------------
     def _trajectories(self, nodes, ts, tf, line):
@@ -389,11 +392,36 @@ class IslTransport:
                             Q_tgt * rho_inv[None])
         return torch.minimum(torch.maximum(q_new, q_min_node), q_max_node)
 
-    def _step_impl(self, rho, q, ts, tf):
+    def _mixed_dss(self, rho_tgt, q_new):
+        """The mixed method's DSS: density and tracer masses with the
+        weights F (K3/K4 each), q = Q / rho clipped to the coincident-node
+        range of the pre-DSS q."""
+        m = self.mesh
+        nt = q_new.shape[0]
+        rho_out = self._dss(rho_tgt)
+        Q_out = dss.dss_gather_t((q_new * rho_tgt[None]).reshape(nt, -1),
+                                 self.d2c_map, m.c2d_idx, m.c2d_mask, self.Ff,
+                                 self.slots)
+        q_out = Q_out / torch.where(rho_out == 0, 1.0, rho_out).reshape(1, -1)
+        vals = q_new.reshape(nt, -1)[:, m.c2d_idx]          # (nt, cnn, 4)
+        inf = float("inf")
+        lo = torch.amin(torch.where(m.c2d_mask, vals, inf), -1)
+        hi = torch.amax(torch.where(m.c2d_mask, vals, -inf), -1)
+        q_out = torch.minimum(torch.maximum(q_out, lo[:, self.d2c_map]),
+                              hi[:, self.d2c_map])
+        return rho_out, q_out.reshape(q_new.shape)
+
+    def _step_impl(self, rho, q, ts, tf, rho_tgt_ext=None):
+        cfg = self.config
         dep, ci, w = self._departure_data(ts, tf)
         rho_tgt, q_tgt, node_src_cell = self._interp_phase(rho, q, dep, ci, w)
+        if rho_tgt_ext is not None:
+            rho_tgt = rho_tgt_ext
         rho_tgt = self._rho_cdr(rho, rho_tgt)
         q_new = self._tracer_cdr(rho, q, rho_tgt, q_tgt, node_src_cell)
+        if (rho_tgt_ext is not None and not cfg.positive_only
+                and cfg.filter not in ("none", "caas-node")):
+            return self._mixed_dss(rho_tgt, q_new)
         return rho_tgt, self._dss_q(rho_tgt, q_new)
 
     def phase_times(self, rho, q, ts, tf, iters: int = 10):

@@ -218,3 +218,58 @@ def test_step_card_vs_cpu(dev, case):
     (rc, qc), (rg, qg) = res["cpu"], res[str(dev)]
     assert float((rc - rg).abs().max()) <= 1e-12
     assert float((qc - qg).abs().max()) <= 1e-12
+
+
+# The cell-integrated methods' call sites, card against CPU, f64, ne3, 4
+# tracers, 2 steps of one day: K1 (MassRedistributor caas) and K2 (the caas
+# limiter) in the IR CDR, K3 in the d2c DSS and the mixed isl method's DSS.
+IR_CASES = {
+    "ir_f_caas_caas_d2c": (dict(method="ir", dmc="f", filter="caas",
+                                limiter="caas"),
+                           {"glbl_caas_f64": 1, "limit_caas_f64": 1,
+                            "dss_q_f64": 2}),
+    "cdg_es_qlt_mn2_d2c": (dict(method="cdg", dmc="es", filter="qlt",
+                                limiter="mn2"), {"dss_q_f64": 2}),
+    "ir_eh_caas_caas": (dict(method="ir", dmc="eh", filter="caas",
+                             limiter="caas", d2c=False),
+                        {"glbl_caas_f64": 1, "limit_caas_f64": 1}),
+    "mixed_isl": (dict(method="ir", dmc="eh", filter="none",
+                       limiter="none"), {"dss_q_f64": 2}),
+}
+
+
+@pytest.mark.parametrize("case", list(IR_CASES))
+def test_ir_step_card_vs_cpu(dev, case):
+    from compose_tpu_torch import driver
+    from compose_tpu_torch.transport import gallery
+    from compose_tpu_torch.transport.ir import IrConfig, IrTransport
+    from compose_tpu_torch.transport.isl import IslConfig, IslTransport
+
+    cfg, want = IR_CASES[case]
+    res = {}
+    for d in ("cpu", dev):
+        mesh = cubed_sphere.build(3, 4, device=d)
+        wind = gallery.create_wind("divergent")
+        ir = IrTransport(mesh, wind, IrConfig(ne=3, nsub=2, **cfg))
+        step = ir.step
+        if case == "mixed_isl":
+            isl = IslTransport(mesh, wind, IslConfig(
+                ne=3, filter="qlt", limiter="mn2", rho_isl=False, nsub=2))
+
+            def step(rho, q, ts, tf):
+                return isl.step(rho, q, ts, tf,
+                                rho_tgt=ir.remap_rho(rho, ts, tf))
+        rho = torch.ones((mesh.ncell, mesh.np2), dtype=torch.float64,
+                         device=d)
+        q = driver.init_tracers(mesh, ["gaussianhills", "slottedcylinders",
+                                       "cosinebells", "xyztrig"])
+        for k in _native.KERNELS.values():
+            k.launches = 0
+        for s in range(2):
+            rho, q = step(rho, q, s * 86400.0, (s + 1) * 86400.0)
+        res[str(d)] = (rho.cpu(), q.cpu())
+    launches = {k: v.launches for k, v in _native.KERNELS.items()}
+    assert launches == {k: 2 * want.get(k, 0) for k in launches}
+    (rc, qc), (rg, qg) = res["cpu"], res[str(dev)]
+    assert float((rc - rg).abs().max()) <= 1e-12
+    assert float((qc - qg).abs().max()) <= 1e-12

@@ -52,18 +52,24 @@ def test_float_tables(built):
 
 
 def test_from_numpy_carries_the_tables():
-    # Every table, the rotated and nonuniform meshes' too; subcell meshes
-    # are refused.
-    for kw in (dict(), dict(rotate=ROT, nonuni=True)):
-        mj, mt = meshes(3, **kw)
+    # Every table, the rotated, nonuniform and subcell meshes' too; a
+    # subcell refinement of a nonuniform mesh is refused by both packages.
+    for ne, kw in ((3, dict()), (3, dict(rotate=ROT, nonuni=True)),
+                   (2, dict(mesh_type="gllsubcell"))):
+        mj, mt = meshes(ne, **kw)
+        assert (mt.sub_parent_ne, mt.is_subcell) == (mj.sub_parent_ne,
+                                                     mj.is_subcell)
         for k in INT_TABLES + FLOAT_TABLES + OPTIONAL:
             if getattr(mj, k) is None:
                 assert getattr(mt, k) is None, k
                 continue
             assert np.array_equal(np.asarray(getattr(mj, k)),
                                   np_(getattr(mt, k))), k
+    with pytest.raises(AssertionError):
+        cs_jax.build(2, 4, nonuni=True, mesh_type="gllsubcell")
     with pytest.raises(NotImplementedError):
-        cs_torch.from_numpy(dict(jax_tables(mj), sub_parent_ne=3), "cpu")
+        cs_torch.build(2, 4, device="cpu", nonuni=True,
+                       mesh_type="gllsubcell")
 
 
 ROT = ((0.11111, -0.051515, 1.0), 0.142314 * np.pi)

@@ -180,8 +180,9 @@ def test_observer_invariants(runs):
 
 def test_unported_config_raises():
     # What the port still lacks: mixed geometry/interpolation precisions,
-    # the mixed isl method (an external target density), IR/CDG,
-    # p-refinement and subcell meshes.
+    # p-refinement, the winds beyond divergent and nondivergent, and the
+    # single-precision route of the cell-integrated methods. A target
+    # density needs the mixed method's rho_isl=False.
     mj, mt = meshes(4)
     with pytest.raises(NotImplementedError):
         IslT(mt, gallery_torch.create_wind("divergent"),
@@ -189,9 +190,10 @@ def test_unported_config_raises():
     st = IslT(mt, gallery_torch.create_wind("divergent"), CfgT(ne=4))
     rho = torch.ones((mt.ncell, mt.np2), dtype=torch.float64)
     q = driver_torch.init_tracers(mt, ["gaussianhills"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         st.step(rho, q, 0.0, 3600.0, rho_tgt=rho)
-    for kw in (dict(method="ir"), dict(method="isl"), dict(prefine=5),
-               dict(mesh_type="gllsubcell")):
+    for kw in (dict(prefine=5), dict(ode="rotate"), dict(ode="movingvortices"),
+               dict(method="ir", x64=False), dict(method="cdg", x64=False),
+               dict(method="isl", x64=False)):
         with pytest.raises(NotImplementedError):
             driver_torch.run(ne=2, nsteps=1, device="cpu", **kw)
