@@ -15,8 +15,9 @@ Phases (any failure raises, so the exit code is nonzero):
      kernel, CUDA events around one call), the plain version's call time
      and the bound. Then the shapes of the other ISL options: K1 at 54,
      216 and 1350 cells (timed at 1350, the np8 interp path's), K2 at np2
-     4, 9, 36, 64 (timed at ne15 np8's (40, 1350, 64)), 144 and 256, K3/K4
-     at np 6, 8 and 12 with the sphere measure, bitwise;
+     4, 9, 36, 64 (timed at ne15 np8's (40, 1350, 64) and, f64, at the
+     prefine-5 path's ne30 np8 (40, 5400, 64)), 144 and 256, K3/K4 at np
+     6, 8 and 12 with the sphere measure, bitwise;
   3. small references (ne4 np4, 4 tracers, 3 steps: caas/caas and qlt/mn2
      in f64, qlt/mn2 in f32; ne3 np6 qlt/mn2 and ne3 np8 caas-node/caas
      dmc es in f64; the cell-integrated paths' configs at ne3 and a ne2
@@ -45,12 +46,25 @@ Phases (any failure raises, so the exit code is nonzero):
        - B: cdg, dmc es, qlt/mn2, d2c: K3 twice;
        - C: the mixed isl method (IrTransport.remap_rho with dmc eh, then
          the ISL step with qlt/mn2 and that target density): K3 twice;
+     and the p-refinement and physics-grid paths (ne30, 40 tracers, f64,
+     12 steps of 2.4 h, each profiled over 3 more), with the small
+     references of their configs (prefine 5 and 1 at ne3 np6, the pg2 toy
+     chemistry at ne4, a moving-vortices step at ne4) before them:
+       - P5: prefine 5, the fine np8 grid under the np4 v grid, caas/caas,
+         dmc eh (v-grid GLL mass): K1 twice, K2 twice (the fine limiter
+         at np2 64, the t -> v transfer at np2 16; the first step a third,
+         v -> t), K3 once per step, each step's counts printed;
+       - PG: ne30pg2, the toy chemistry on the physics grid before each
+         pisl caas/caas step: K1, K2, K3 as the flagship; tracers 0-1 in
+         [0, 4e-6], the others held to mass and bounds;
   4. golden battery rows through driver.run, each with its own bars:
      isl_caas_flagship_f32, pisl qlt/mn2 and caas/mn2 ne10, pisl qlt np6,
      pisl qlt-pve ne10, the three pisl np12 runs (exact, interp, interp
      caas) and the four prefine-0 rows (ne6 np8, caas or caas-node, dmc es
      or eh); then the 42 rows of IR_GOLDEN (ir, cdg, subcell meshes,
-     perturbed density, the mixed isl method).
+     perturbed density, the mixed isl method); the battery's ten
+     prefine-5 rows, test_prefine_experiments' two runs,
+     test_physgrid_coupled_toychem and test_moving_vortices_analytic.
 The last two lines are the kernels' JSON summary and the device JSON.
 """
 
@@ -283,6 +297,21 @@ def phase_kernels(dev, stats, dtype, ne=30):
         else:
             log(f"limit_caas_{sfx} ({nt}, {nc}, {p2}): bitwise == plain, "
                 f"bounds held")
+    if dtype == F64:
+        # The prefine-5 path's fine-grid limiter: ne30 np8, (40, 5400, 64).
+        F = cubed_sphere.build(ne, 8, device=dev).dgbfi_gll.cpu().numpy()
+        a2 = k2_inputs(F.shape[0], 64, F)
+        out = cdr_fused.limit_caas(*a2)
+        ref = cdr_fused.limit_caas_plain(*a2)
+        torch.cuda.synchronize()
+        same(out, ref, f"limit_caas_{sfx} ({nt}, {F.shape[0]}x64)")
+        if not (bool((out >= a2[3]).all()) and bool((out <= a2[4]).all())):
+            raise AssertionError("K2: output outside [qmin, qmax]")
+        record(f"limit_caas_{sfx}", float((out - ref).abs().max()),
+               lambda a=a2: cdr_fused.limit_caas(*a),
+               lambda a=a2: cdr_fused.limit_caas_plain(*a), a2, out,
+               30 * nt * F.shape[0] * 64, (nt, F.shape[0], 64),
+               summary=False)
 
     # K3 / K4: zero-density nodes exercise the F-weighted fallback.
     ndgll = ncell * np2
@@ -430,6 +459,93 @@ def phase_small_reference(dev):
             f"- cpu| = {err:.3e} (tolerance 1e-12)")
         if not err <= 1e-12:
             raise AssertionError(f"card run disagrees with the CPU run: {err}")
+    # Prefine 5 and 1 at ne3 with a fine np6 grid, the pg2 toy chemistry at
+    # ne4 and a moving-vortices step at ne4; 4 tracers, steps of one day.
+    for label, make, nsteps in (
+            ("prefine 5 ne3 np6 caas/caas dmc eh",
+             lambda d: _prefine_setup(d, 3, 6, 4, experiment=5, dmc="eh",
+                                      nsub=2)[0], 2),
+            ("prefine 1 ne3 np6 caas/caas dmc f",
+             lambda d: _prefine_setup(d, 3, 6, 4, experiment=1, dmc="f",
+                                      nsub=2)[0], 2),
+            ("pg2 toy chemistry ne4 pisl caas/caas",
+             lambda d: _pg_setup(d, 4, 4, nsub=2)[0], 2),
+            ("moving vortices ne4 pisl none/none",
+             lambda d: _vortex_setup(d, 4), 1)):
+        res = {}
+        for d in ("cpu", dev):
+            _, step, rho, q, _ = make(d)
+            for s in range(nsteps):
+                rho, q = step(rho, q, s * 86400.0, (s + 1) * 86400.0)
+            res[str(d)] = (rho.cpu(), q.cpu())
+        (rc, qc), (rg, qg) = res["cpu"], res[str(dev)]
+        err = max(float((rc - rg).abs().max()), float((qc - qg).abs().max()))
+        log(f"small reference ({label}, {nsteps} steps, f64): max |card - "
+            f"cpu| = {err:.3e} (tolerance 1e-12)")
+        if not err <= 1e-12:
+            raise AssertionError(f"card run disagrees with the CPU run: {err}")
+
+
+def _prefine_setup(dev, ne, np_, nt, **cfg):
+    """((mesh, step, rho, q, measure), model) of a p-refinement run with
+    caas/caas: the fine grid at np_, the np4 v grid; the primary mesh is
+    the v grid for experiment 5, the fine grid for 1. `step` carries the
+    experiment's state."""
+    from compose_tpu_torch.mesh import cubed_sphere
+    from compose_tpu_torch.transport import gallery
+    from compose_tpu_torch.transport.prefine import (PRefineConfig,
+                                                     PRefineTransport)
+
+    mesh_f = cubed_sphere.build(ne, np_, device=dev)
+    model = PRefineTransport(mesh_f, gallery.create_wind("divergent"),
+                             PRefineConfig(ne=ne, np_=np_, filter="caas",
+                                           limiter="caas", **cfg))
+    mesh = model.mesh_v if cfg["experiment"] == 5 else mesh_f
+    state = [None]
+
+    def step(rho, q, ts, tf):
+        rho, q, state[0] = model.step(rho, q, ts, tf, state[0])
+        return rho, q
+    measure = "sphere" if cfg.get("dmc") == "es" else "gll"
+    return (mesh, step) + _state(mesh, nt) + (measure,), model
+
+
+def _pg_setup(dev, ne, nt, **cfg):
+    """((mesh, step, rho, q, "gll"), (pg ops, centers)) of the toy
+    chemistry on the pg2 physics grid before each pisl caas/caas step, as
+    driver.run(pg=2) couples them: tracers 0 and 1 are toychem1 and
+    toychem2, the others the bench ICs tiled."""
+    from compose_tpu_torch import driver
+    from compose_tpu_torch.transport.physgrid import PhysgridOps
+
+    mesh, model, rho, q = _model(dev, ne, nt - 2, F64, filter="caas",
+                                 limiter="caas", **cfg)
+    q = torch.cat([driver.init_tracers(mesh, ["toychem1", "toychem2"]), q])
+    pg_ops = PhysgridOps(mesh, 2, "elrecon")
+    lat, lon = driver._pg_centers(mesh, 2)
+
+    def step(rho, q, ts, tf):
+        q = driver._toychem_on_pg(pg_ops, lat, lon, rho, q, (0, 1), tf - ts)
+        return model.step(rho, q, ts, tf)
+    return (mesh, step, rho, q, "gll"), (pg_ops, lat, lon)
+
+
+def _vortex_setup(dev, ne):
+    """(mesh, step, rho, q, "gll") of the moving vortices with the vortex
+    tracer, pisl with filter and limiter none (test_moving_vortices.py's
+    configuration)."""
+    from compose_tpu_torch import driver
+    from compose_tpu_torch.mesh import cubed_sphere
+    from compose_tpu_torch.transport import gallery
+    from compose_tpu_torch.transport.isl import IslConfig, IslTransport
+
+    mesh = cubed_sphere.build(ne, 4, device=dev)
+    model = IslTransport(mesh, gallery.create_wind("movingvortices"),
+                         IslConfig(ne=ne, filter="none", limiter="none",
+                                   nsub=8))
+    rho = torch.ones((mesh.ncell, mesh.np2), dtype=F64, device=dev)
+    return mesh, model.step, rho, driver.init_tracers(
+        mesh, ["vortextracer"]), "gll"
 
 
 # The cell-integrated paths (ne30 np4) and their small references (ne3).
@@ -449,15 +565,20 @@ IR_SMALL = {
 
 def run_path(dev, name, dtype, nsteps, want, mass_tol=1e-12,
              bounds_tol=5e-13, ne=30, nt=40, np_=4, measure="gll",
-             setup=None, period=None, **cfg):
+             setup=None, period=None, first_extra=None, dofs=None,
+             observed=None, step_check=None, **cfg):
     """Drive one path (ne30 np4 unless told otherwise) with 40 tracers for
     `nsteps` steps of 1/`period` (default 1/nsteps) of a 12-day period
     through IslTransport.step, or through the step of `setup` (mesh, step,
     rho, q, measure; see _ir_model), with every launch count set to 0 just
     before and read just after. `want`: launches per step of each kernel
-    (every other kernel must not launch). The Observer checks mass in
-    `measure` (gll, or sphere for dmc es). Returns the launch counts, the
-    model (or step), the final state and the step length."""
+    (every other kernel must not launch), plus `first_extra` in the first
+    step. The Observer checks mass in `measure` (gll, or sphere for dmc
+    es) for rho and the tracers `observed` (default all), and
+    `step_check(rho, q)` runs after every step. `dofs`: (tracer DOFs per
+    step, what they count), by default the mesh's slots times the
+    tracers. Returns the launch counts, the model (or step), the final
+    state and the step length."""
     from compose_tpu_torch import _native, driver
     from compose_tpu_torch.diagnostics import Observer
 
@@ -467,10 +588,11 @@ def run_path(dev, name, dtype, nsteps, want, mass_tol=1e-12,
     else:
         mesh, step, rho, q, measure = setup
         model = step
+    observed = observed or slice(None)
     q0, rho0 = q, rho
     obs = Observer(mesh.dgbfi_gll, mesh.dgbfi_sphere,
-                   ["rho"] + [f"q{i}" for i in range(nt)])
-    obs.add_obs(0.0, rho, list(q))
+                   ["rho"] + [f"q{i}" for i in range(nt)][observed])
+    obs.add_obs(0.0, rho, list(q[observed]))
     T = 86400.0 * 12
     period = period or nsteps
     dt = T / period
@@ -478,20 +600,30 @@ def run_path(dev, name, dtype, nsteps, want, mass_tol=1e-12,
     for k in _native.KERNELS.values():
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    step_s = []
+    step_s, per_step = [], []
     for s in range(nsteps):
+        before = {n: k.launches for n, k in _native.KERNELS.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rho, q = step(rho, q, s * dt, T if s + 1 == period else (s + 1) * dt)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-        obs.add_obs((s + 1) * dt, rho, list(q))
+        per_step.append({n: k.launches - before[n]
+                         for n, k in _native.KERNELS.items()})
+        obs.add_obs((s + 1) * dt, rho, list(q[observed]))
+        if step_check is not None:
+            step_check(rho, q)
     launches = {n: k.launches for n, k in _native.KERNELS.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    expect = {n: want.get(n, 0) * nsteps for n in _native.KERNELS}
+    first_extra = first_extra or {}
+    expect = {n: want.get(n, 0) * nsteps + first_extra.get(n, 0)
+              for n in _native.KERNELS}
     if launches != expect:
         raise AssertionError(f"{name}: launch counts {launches} != {expect}")
+    if first_extra:
+        log(f"{name}: launches in each step: " + "; ".join(
+            " ".join(f"{n} {c[n]}" for n in want) for c in per_step))
     if not (bool(torch.isfinite(q).all()) and bool(torch.isfinite(rho).all())
             and q.shape == q0.shape and rho.shape == rho0.shape
             and q.dtype == rho.dtype == dtype):
@@ -502,11 +634,12 @@ def run_path(dev, name, dtype, nsteps, want, mass_tol=1e-12,
                              f"{mass_err:.3e}, bounds {bounds_err:.3e}")
     out = driver.summarize(mesh, q0[0], rho0, q[0], rho)
     sec = statistics.median(step_s[1:])
-    per_step = " ".join(f"{n} {launches[n] // nsteps}" for n in want)
+    per_step = " ".join(f"{n} {per_step[-1][n]}" for n in want)
+    ndof, what = dofs or (mesh.ncell * mesh.np2 * nt, "")
     log(f"{name}: ne{ne} np{np_} {nt} tracers, {nsteps} steps of {dt:g} s: "
         f"step {sec * 1e3:.3f} ms (median of steps 2..{nsteps}; first "
-        f"{step_s[0] * 1e3:.1f} ms), {mesh.ncell * mesh.np2 * nt / sec:.4e} "
-        f"tracer-DOF/s; l2 {out.l2_err:.4e} cv_gll {out.cv_gll:.3e} cv "
+        f"{step_s[0] * 1e3:.1f} ms), {ndof / sec:.4e} tracer-DOF/s{what}; "
+        f"l2 {out.l2_err:.4e} cv_gll {out.cv_gll:.3e} cv "
         f"{out.cv:.3e}; Observer mass ({measure}) {mass_err:.3e} bounds "
         f"{bounds_err:.3e} (bars "
         f"{mass_tol:g}, {bounds_tol:g}); launches/step {per_step}; peak "
@@ -626,6 +759,58 @@ def phase_ir_paths(dev):
         _, step, rho, q, dt = run(label, cfg, {"dss_q_f64": 2})
         _profile(f"path {label}", step, rho, q, 12 * dt, dt)
     return counts
+
+
+def phase_prefine_pg(dev):
+    """The p-refinement and physics-grid paths at ne30, 40 tracers, nsub
+    8, f64, 12 steps of 1/120 of the period, each then profiled over 3
+    more steps. Returns each kernel's launch count from P5 and from PG."""
+    # P5: prefine 5, fine np8 GllNodal under the np4 v grid, caas/caas,
+    # dmc eh: the v-grid GLL mass is conserved. K1 on the v-grid rho
+    # (1, 5400) and the fine tracers (40, 5400), K3 on the v-grid rho DSS
+    # (1, 86400), K2 in the fine limiter (40, 5400 x 64) and the t -> v
+    # transfer (40, 5400 x 16); the first step's v -> t transfer is one
+    # more K2 launch at np2 64.
+    setup, model = _prefine_setup(dev, 30, 8, 40, experiment=5, dmc="eh",
+                                  nsub=8)
+    mf = model.mesh_f
+    label = "P5: prefine 5 ne30 np8/np4 caas/caas dmc eh"
+    p5, step, rho, q, dt = run_path(
+        dev, f"path {label}", F64, 12,
+        {"glbl_caas_f64": 2, "limit_caas_f64": 2, "dss_q_f64": 1},
+        period=120, setup=setup, first_extra={"limit_caas_f64": 1},
+        dofs=(mf.ncell * mf.np2 * 40, " (the fine np8 grid's DOFs)"))
+    _profile(f"path {label}", step, rho, q, 12 * dt, dt)
+
+    # PG: ne30pg2, the toy chemistry on the physics grid before each pisl
+    # caas/caas step (K1, K2, K3 as the flagship); tracers 0-1 held to the
+    # toy chemistry's range, the 38 others to mass and bounds.
+    setup, (pg_ops, lat, lon) = _pg_setup(dev, 30, 40, nsub=8)
+
+    def toychem_range(rho, q):
+        lo, hi = float(q[:2].amin()), float(q[:2].amax())
+        if not (lo >= 0.0 and hi <= 4.0000001e-6):
+            raise AssertionError(f"PG: toy chemistry left [0, 4e-6]: "
+                                 f"[{lo}, {hi}]")
+
+    label = "PG: ne30pg2 toy chemistry, pisl caas/caas"
+    pg, step, rho, q, dt = run_path(
+        dev, f"path {label}", F64, 12,
+        {"glbl_caas_f64": 2, "limit_caas_f64": 1, "dss_q_f64": 2},
+        period=120, setup=setup, observed=slice(2, None),
+        step_check=toychem_range)
+    from compose_tpu_torch import driver
+
+    def coupling():
+        return driver._toychem_on_pg(pg_ops, lat, lon, rho, q, (0, 1), dt)
+    rho_p, q_p = pg_ops.gll2fv(rho, q)
+    log(f"path PG physics grid (ms, CUDA events, median of 25): gll2fv "
+        f"{cuda_ms(lambda: pg_ops.gll2fv(rho, q)):.3f}, fv2gll "
+        f"{cuda_ms(lambda: pg_ops.fv2gll(rho_p, q_p)):.3f}; the toy "
+        f"chemistry's coupling per step (gll2fv, tendency, fv2gll's "
+        f"operator, clip) {cuda_ms(coupling):.3f}")
+    _profile(f"path {label}", step, rho, q, 12 * dt, dt)
+    return p5, pg
 
 
 def _log_phases(label, model, rho, q):
@@ -786,6 +971,70 @@ IR_GOLDEN = {
 }
 
 
+_P5 = dict(ne=6, np_=8, nsteps=13, ics=GH, timeint="interp", prefine=5)
+_CN = dict(filter_="caas-node", limiter="caas")
+_CC = dict(filter_="caas", limiter="caas")
+_OFF = dict(basis="GllOffsetNodal")
+# The regression battery's ten prefine-5 rows (ne6, fine np8, 13 steps)
+# and the other golden runs of this slice: name -> (driver.run arguments,
+# bars), as tests/test_regression_battery.py and tests/test_transport_e2e.py
+# hold the JAX package.
+PREF_GOLDEN = {
+    "pref5_es_caas": (dict(_P5, dmc="es", **_CC), _bat(5.885e-3, cv=4e-14)),
+    "pref5_eh_caas": (dict(_P5, dmc="eh", **_CC),
+                      _bat(5.886e-3, cv_gll=2e-14)),
+    "pref5_es_caasnode": (dict(_P5, dmc="es", **_CN),
+                          _bat(5.885e-3, cv=4e-14)),
+    "pref5_eh_caasnode": (dict(_P5, dmc="eh", **_CN),
+                          _bat(5.886e-3, cv_gll=2e-14)),
+    "pref5_none": (dict(_P5, dmc="es", filter_="none", limiter="none"),
+                   _bat(4.2e-3)),
+    "pref5_rotated": (dict(_P5, dmc="eh", rotate_grid=True, **_CN),
+                      _bat(5.886e-3, cv_gll=2e-14)),
+    "pref5_es_offset": (dict(_P5, dmc="es", **_CC, **_OFF),
+                        _bat(5.885e-3, cv=4e-14)),
+    "pref5_eh_offset": (dict(_P5, dmc="eh", **_CC, **_OFF),
+                        _bat(5.886e-3, cv_gll=2e-14)),
+    "pref5_es_cn_offset": (dict(_P5, dmc="es", **_CN, **_OFF),
+                           _bat(5.885e-3, cv=4e-14)),
+    "pref5_eh_cn_offset": (dict(_P5, dmc="eh", **_CN, **_OFF),
+                           _bat(5.886e-3, cv_gll=2e-14)),
+    "test_prefine_experiments[5]": (
+        dict(ne=3, np_=6, nsteps=3, ics=GH, prefine=5, **_CC),
+        dict(l2=0.2, cv_gll=5e-14, step=True)),
+    "test_prefine_experiments[1]": (
+        dict(ne=3, np_=6, nsteps=3, ics=GH, prefine=1, **_CC),
+        dict(l2=0.2, cv_gll=5e-14, step=True)),
+    "test_physgrid_coupled_toychem": (
+        dict(ne=4, nsteps=3, ics=("toychem1", "toychem2"), nsub=2, pg=2,
+             **_CC),
+        dict(l2=float("inf"), pos=False, min=0.0, max=4.0000001e-6)),
+}
+
+
+def golden_moving_vortices(dev):
+    """tests/test_moving_vortices.py: ne10 np4, 12 steps, the vortex
+    tracer against its analytic field at the end, l2 < 5e-2."""
+    from compose_tpu_torch.ops import sphere
+    from compose_tpu_torch.transport import gallery
+
+    t0 = time.perf_counter()
+    mesh, step, rho, q, _ = _vortex_setup(dev, 10)
+    T = 86400.0 * 12
+    for s in range(12):
+        rho, q = step(rho, q, s * T / 12, (s + 1) * T / 12)
+    lat, lon = sphere.xyz2ll(mesh.cell_nodes_xyz.reshape(-1, 3))
+    exact = gallery.MovingVortices.calc_tracer(T, lat, lon)
+    w = mesh.dgbfi_sphere.reshape(-1)
+    e = q[0].reshape(-1) - exact
+    l2 = float(torch.sqrt(torch.sum(w * e * e) / torch.sum(w * exact ** 2)))
+    log(f"golden test_moving_vortices_analytic (ne10 np4, 12 steps, "
+        f"{time.perf_counter() - t0:.1f} s): l2 against the analytic field "
+        f"{l2:.4e} (bar 5e-2)")
+    if not l2 < 5e-2:
+        raise AssertionError("golden row test_moving_vortices_analytic failed")
+
+
 def phase_golden(dev):
     """Golden battery rows through driver.run, each with its own bars, as
     tests/test_transport_e2e.py and tests/test_regression_battery.py hold
@@ -825,7 +1074,8 @@ def phase_golden(dev):
         ("pref0_eh_caasnode", dict(l2=5.968e-3, cv_gll=2e-14),
          dict(pref, filter_="caas-node", limiter="caas", dmc="eh")),
     )
-    rows += tuple((name, bars, kw) for name, (kw, bars) in IR_GOLDEN.items())
+    rows += tuple((name, bars, kw) for name, (kw, bars) in
+                  list(IR_GOLDEN.items()) + list(PREF_GOLDEN.items()))
     for name, bars, kw in rows:
         kw = dict(dict(np_=4, nsteps=12), **kw)
         t0 = time.perf_counter()
@@ -836,11 +1086,12 @@ def phase_golden(dev):
                           if k in bars)
         log(f"golden {name} (ne{kw['ne']} np{kw['np_']}, {kw['nsteps']} "
             f"steps, {sec:.1f} s): l2 {out.l2_err:.4e} cv_gll {out.cv_gll:.3e} cv "
-            f"{out.cv:.3e} min {out.min_e:.4f} max {out.max_e:.4f} "
+            f"{out.cv:.3e} min {out.min_e:.5g} max {out.max_e:.5g} "
             f"step-mass {out.max_step_mass_err:.3e} step-bounds "
             f"{out.max_step_bounds_err:.3e} (bars: {shown})")
         if not row_ok(out, bars):
             raise AssertionError(f"golden row {name} failed")
+    golden_moving_vortices(dev)
 
 
 def main():
@@ -876,6 +1127,7 @@ def main():
     phase_small_reference(dev)
     launches = phase_paths(dev)
     ir_launches = phase_ir_paths(dev)
+    p5_launches, pg_launches = phase_prefine_pg(dev)
     phase_golden(dev)
 
     keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
@@ -883,6 +1135,7 @@ def main():
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=src, replaces=rep,
              launches=launches[n], launches_ir_a=ir_launches[n],
+             launches_p5=p5_launches[n], launches_pg=pg_launches[n],
              **{k: stats[n][k] for k in keys})
         for n, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """QLT: quasi-local tree constrained density reconstructor
-(compose_tpu.cdr.qlt), for the SHAPEPRESERVE problem type that the spf
-'qlt' filter uses.
+(compose_tpu.cdr.qlt), for every problem type of the standalone CEDR and
+for the SHAPEPRESERVE type with a root-mass extra that the spf 'qlt'
+filter uses.
 
 Both sweeps are level-batched over a flat tree (tree.py): each level is one
 gather, a vectorized node solve and an index_copy_ into the level's ids, so
@@ -8,8 +9,11 @@ the solve is O(log ncell) rounds of tensor ops whatever the tracer count.
 No Python loop runs over nodes. Tracers are a dense leading axis.
 
 Problem types follow cedr::ProblemType: a bitmask of conserve=1,
-shapepreserve=2, consistent=4, nonnegative=16. The other types belong to
-the standalone CEDR and raise NotImplementedError.
+shapepreserve=2, consistent=4, nonnegative=16. Conserve takes the mass
+target from Qm_prev; consistent without shapepreserve carries the q range
+(kid min / max, not sums) up the tree and hands every node the root's
+global range ("dynamic range"); nonnegative solves a nonnegativity-only
+node problem.
 """
 
 import torch
@@ -125,13 +129,23 @@ def r2l_nl_adjust_bounds(Qm_bnd, rhom, Qm_extra):
 
 def solve_node_problem(problem_type, rhom, pd, Qm, rhom0, k0d, rhom1, k1d,
                        prefer_mass_con_to_bounds=False):
-    """Batched SHAPEPRESERVE node QP. pd, k0d, k1d: (..., 3) = (Qm_min, Qm,
-    Qm_max) of the node and its kids (the l2r data); rhom*: (...,).
-    Returns the kids' masses (Qm0, Qm1)."""
-    if problem_type != SHAPEPRESERVE:
-        raise NotImplementedError(
-            f"QLT problem type {problem_type} is not ported (SHAPEPRESERVE "
-            "only)")
+    """Batched node QP. pd, k0d, k1d: (..., 3) = (Qm_min, Qm, Qm_max) of
+    the node and its kids (the l2r data; q bounds for consistent without
+    shapepreserve); rhom*: (...,). Returns the kids' masses (Qm0, Qm1)."""
+    if (problem_type & CONSISTENT) and not (problem_type & SHAPEPRESERVE):
+        def scale(d, r):
+            return torch.stack([d[..., 0] * r, d[..., 1], d[..., 2] * r],
+                               dim=-1)
+        return solve_node_problem(
+            problem_type | SHAPEPRESERVE, rhom, scale(pd, rhom), Qm, rhom0,
+            scale(k0d, rhom0), rhom1, scale(k1d, rhom1),
+            prefer_mass_con_to_bounds)
+    if problem_type & NONNEGATIVE:
+        a = torch.ones(Qm.shape + (2,), dtype=Qm.dtype, device=Qm.device)
+        w = torch.stack([1.0 / rhom0, 1.0 / rhom1], dim=-1)
+        y = torch.stack([k0d[..., 0], k1d[..., 0]], dim=-1)
+        x, _ = local_qp.solve_1eq_nonneg(a, Qm, y, w, method="least_squares")
+        return x[..., 0], x[..., 1]
     Qm_min_kids = torch.stack([k0d[..., 0], k1d[..., 0]], dim=-1)
     Qm_orig_kids = torch.stack([k0d[..., 1], k1d[..., 1]], dim=-1)
     Qm_max_kids = torch.stack([k0d[..., 2], k1d[..., 2]], dim=-1)
@@ -179,21 +193,20 @@ class _Level:
 
 
 class QLT:
-    """Functional QLT over a fixed tree, SHAPEPRESERVE problems.
+    """Functional QLT over a fixed tree.
 
-        q = QLT(ncells)
-        Qm_out = q.run(rhom, Qm, Qm_min, Qm_max, root_extra=extra)
+        q = QLT(ncells, problem_type=SHAPEPRESERVE | CONSERVE)
+        Qm_out = q.run(rhom, Qm, Qm_min, Qm_max, Qm_prev)
 
-    Tracer arrays have shape (nt, ncells), rhom (ncells,).
+    Tracer arrays have shape (nt, ncells), rhom (ncells,). One problem type
+    per instance; a mixed tracer set runs one QLT per type.
     """
 
     def __init__(self, ncells: int, problem_type: int = SHAPEPRESERVE,
                  imbalanced_tree: bool = False,
                  prefer_mass_con_to_bounds: bool = False):
-        if problem_type != SHAPEPRESERVE:
-            raise NotImplementedError(
-                f"QLT problem type {problem_type} is not ported "
-                "(SHAPEPRESERVE only)")
+        if not problem_type & (NONNEGATIVE | SHAPEPRESERVE | CONSISTENT):
+            raise ValueError(f"invalid QLT problem type {problem_type}")
         self.ncells = ncells
         self.problem_type = problem_type
         self.prefer = prefer_mass_con_to_bounds
@@ -207,15 +220,29 @@ class QLT:
                                  for lv in self.tree.levels]
         return self._levels[key]
 
-    def run(self, rhom, Qm, Qm_min, Qm_max, root_extra=None):
-        """Redistributed leaf masses (nt, ncells). root_extra: optional
-        (nt,) mass added to the ROOT total only (the spf contract
-        root_mass = Q_data(root) + extra_mass), leaving every leaf channel
-        untouched."""
+    def run(self, rhom, Qm, Qm_min=None, Qm_max=None, Qm_prev=None,
+            root_extra=None):
+        """Redistributed leaf masses (nt, ncells). Qm_min and Qm_max are
+        unused by the nonnegative types, Qm_prev by the types without
+        conserve. root_extra: optional (nt,) mass added to the ROOT total
+        only (the spf contract root_mass = Q_data(root) + extra_mass),
+        leaving every leaf channel untouched."""
+        pt = self.problem_type
         t = self.tree
         levels = self._levels_on(Qm.device)
         nt, nl, nn = Qm.shape[0], t.nleaf, t.nnodes
         kw = dict(dtype=Qm.dtype, device=Qm.device)
+        conserve = bool(pt & CONSERVE)
+        if pt & NONNEGATIVE:
+            # The bound channels carry Qm itself.
+            l2r_min = l2r_max = Qm
+        elif pt & SHAPEPRESERVE:
+            l2r_min, l2r_max = Qm_min, Qm_max
+        else:
+            l2r_min, l2r_max = Qm_min / rhom, Qm_max / rhom
+        # Shape preservation and nonnegativity sum the bound channels up
+        # the tree; the consistent-only types take the kids' q range.
+        sum_bounds = bool(pt & (SHAPEPRESERVE | NONNEGATIVE))
 
         def leaves(x):
             V = torch.zeros(x.shape[:-1] + (nn,), **kw)
@@ -223,19 +250,32 @@ class QLT:
             return V
 
         V_rho, V_min, V_Qm, V_max = (leaves(x)
-                                     for x in (rhom, Qm_min, Qm, Qm_max))
+                                     for x in (rhom, l2r_min, Qm, l2r_max))
+        V_prev = leaves(Qm_prev) if conserve else None
 
-        # Leaf to root: kid sums (a single kid passes through).
+        # Leaf to root: kid sums (a single kid passes through), or for the
+        # dynamic-range bounds the kids' min / max.
         def comb_sum(V, lv):
             v1 = torch.where(lv.single, 0.0, V[..., lv.k1s])
             return V[..., lv.k0] + v1
 
-        for lv in levels:
-            for V in (V_rho, V_min, V_max, V_Qm):
-                V.index_copy_(-1, lv.ids, comb_sum(V, lv))
+        def comb_ext(V, lv, op):
+            v0 = V[..., lv.k0]
+            return op(v0, torch.where(lv.single, v0, V[..., lv.k1s]))
 
-        # Root: the total mass, plus the extra.
-        M_root = V_Qm[:, t.root]
+        summed = [V_rho, V_Qm] + ([V_min, V_max] if sum_bounds else []) \
+            + ([V_prev] if conserve else [])
+        for lv in levels:
+            for V in summed:
+                V.index_copy_(-1, lv.ids, comb_sum(V, lv))
+            if not sum_bounds:
+                V_min.index_copy_(-1, lv.ids,
+                                  comb_ext(V_min, lv, torch.minimum))
+                V_max.index_copy_(-1, lv.ids,
+                                  comb_ext(V_max, lv, torch.maximum))
+
+        # Root: the total mass (of Qm_prev under conserve), plus the extra.
+        M_root = (V_prev if conserve else V_Qm)[:, t.root]
         if root_extra is not None:
             M_root = M_root + root_extra
         M = torch.zeros((nt, nn), **kw)
@@ -243,20 +283,29 @@ class QLT:
 
         # Root to leaf: per-level batched node QPs. A level reads its
         # parents' masses (written by the level above) before it writes its
-        # kids'.
-        for lv in reversed(levels):
-            def data(idx):
-                return torch.stack([V_min[:, idx], V_Qm[:, idx],
-                                    V_max[:, idx]], dim=-1)
+        # kids'. The consistent-only types give every node the root's q
+        # range, which keeps each node problem feasible.
+        dynamic_range = not sum_bounds
+        if dynamic_range:
+            qmin_g = V_min[:, t.root, None]
+            qmax_g = V_max[:, t.root, None]
 
+        def data(idx):
+            if dynamic_range:
+                shape = (nt, idx.shape[0])
+                lo, hi = qmin_g.expand(shape), qmax_g.expand(shape)
+            else:
+                lo, hi = V_min[:, idx], V_max[:, idx]
+            return torch.stack([lo, V_Qm[:, idx], hi], dim=-1)
+
+        for lv in reversed(levels):
             Qm_node = M[:, lv.ids]
             shape = Qm_node.shape
             rhom0 = V_rho[lv.k0].expand(shape)
             rhom1 = torch.where(lv.single, 1.0, V_rho[lv.k1s]).expand(shape)
             Qm0, Qm1 = solve_node_problem(
-                self.problem_type, V_rho[lv.ids].expand(shape), data(lv.ids),
-                Qm_node, rhom0, data(lv.k0), rhom1, data(lv.k1s),
-                self.prefer)
+                pt, V_rho[lv.ids].expand(shape), data(lv.ids), Qm_node,
+                rhom0, data(lv.k0), rhom1, data(lv.k1s), self.prefer)
             M.index_copy_(1, lv.k0, torch.where(lv.single, Qm_node, Qm0))
             M.index_copy_(1, lv.k1_pair, Qm1[:, lv.pair])
         return M[:, :nl]

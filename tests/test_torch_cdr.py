@@ -100,10 +100,22 @@ def test_qlt_run_vs_jax(dt):
 
 
 def test_qlt_other_problem_types_raise():
+    # Every cedr problem type is ported (test_torch_cedr.py holds each
+    # against JAX); what still raises is a bitmask with none of
+    # shapepreserve, consistent and nonnegative, which JAX's run refuses
+    # too. The once-refused types run here on the spf records.
+    for pt in (0, qlt_torch.CONSERVE):
+        with pytest.raises(ValueError):
+            qlt_torch.QLT(24, problem_type=pt)
+    rhom, Qm, Qmin, Qmax, _ = _records(np.random.default_rng(2), 3, 24)
     for pt in (qlt_torch.CONSERVE | qlt_torch.SHAPEPRESERVE,
                qlt_torch.CONSISTENT, qlt_torch.NONNEGATIVE):
-        with pytest.raises(NotImplementedError):
-            qlt_torch.QLT(24, problem_type=pt)
+        args = (rhom, Qm, Qmin, Qmax, Qm)
+        ref = np.asarray(qlt_jax.QLT(24, problem_type=pt).run(
+            *(jnp.asarray(x) for x in args)))
+        out = qlt_torch.QLT(24, problem_type=pt).run(
+            *(torch.tensor(x) for x in args)).numpy()
+        assert _rel(out, ref) <= 1e-13
 
 
 @pytest.mark.parametrize("method", ["qlt", "mn2"])

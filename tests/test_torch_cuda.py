@@ -273,3 +273,90 @@ def test_ir_step_card_vs_cpu(dev, case):
     (rc, qc), (rg, qg) = res["cpu"], res[str(dev)]
     assert float((rc - rg).abs().max()) <= 1e-12
     assert float((qc - qg).abs().max()) <= 1e-12
+
+
+# The p-refinement experiments, card against CPU, ne3 with a fine np6
+# grid, 4 tracers, 2 steps of one day: K1 on the v-grid rho records and on
+# the fine tracers, K3 on the v-grid rho DSS, K2 in the fine limiter (np2
+# 36) and, under exp 5, in the t -> v transfer (np2 16) and the first
+# step's v -> t transfer (np2 36).
+PREFINE_CASES = {
+    5: {"glbl_caas_f64": 4, "limit_caas_f64": 5, "dss_q_f64": 2},
+    1: {"glbl_caas_f64": 4, "limit_caas_f64": 2, "dss_q_f64": 2},
+}
+
+
+@pytest.mark.parametrize("exp", list(PREFINE_CASES))
+def test_prefine_step_card_vs_cpu(dev, exp):
+    from compose_tpu_torch import driver
+    from compose_tpu_torch.transport import gallery
+    from compose_tpu_torch.transport.prefine import (PRefineConfig,
+                                                     PRefineTransport)
+
+    res = {}
+    for d in ("cpu", dev):
+        mesh_f = cubed_sphere.build(3, 6, device=d)
+        model = PRefineTransport(mesh_f, gallery.create_wind("divergent"),
+                                 PRefineConfig(ne=3, np_=6, nsub=2,
+                                               experiment=exp, dmc="eh"))
+        mesh = model.mesh_v if exp == 5 else mesh_f
+        rho = torch.ones((mesh.ncell, mesh.np2), dtype=torch.float64,
+                         device=d)
+        q = driver.init_tracers(mesh, ["gaussianhills", "slottedcylinders",
+                                       "cosinebells", "xyztrig"])
+        state = None
+        for k in _native.KERNELS.values():
+            k.launches = 0
+        for s in range(2):
+            rho, q, state = model.step(rho, q, s * 86400.0,
+                                       (s + 1) * 86400.0, state)
+        res[str(d)] = (rho.cpu(), q.cpu())
+    launches = {k: v.launches for k, v in _native.KERNELS.items()}
+    want = PREFINE_CASES[exp]
+    assert launches == {k: want.get(k, 0) for k in launches}
+    (rc, qc), (rg, qg) = res["cpu"], res[str(dev)]
+    assert float((rc - rg).abs().max()) <= 1e-12
+    assert float((qc - qg).abs().max()) <= 1e-12
+
+
+def test_physgrid_toychem_card_vs_cpu(dev):
+    from compose_tpu_torch import driver
+
+    kw = dict(ne=4, np_=4, nsteps=2, ics=("toychem1", "toychem2",
+                                          "gaussianhills"),
+              filter_="caas", limiter="caas", nsub=2, pg=2, verbose=False)
+    for k in _native.KERNELS.values():
+        k.launches = 0
+    card = driver.run(device=dev, **kw)
+    launches = {k: v.launches for k, v in _native.KERNELS.items()}
+    cpu = driver.run(device="cpu", **kw)
+    assert launches["glbl_caas_f64"] == 4 and launches["dss_q_f64"] == 4
+    assert launches["limit_caas_f64"] == 2
+    assert card.min_e >= 0.0 and card.max_e <= 4.0000001e-06
+    assert abs(card.l2_err - cpu.l2_err) <= 1e-12
+    assert abs(card.mass_e - cpu.mass_e) <= 1e-12 * abs(cpu.mass_e)
+
+
+def test_moving_vortices_analytic(dev):
+    # tests/test_moving_vortices.py on the card: ne10 np4, 12 steps, the
+    # vortex tracer against its analytic field at T, l2 < 5e-2.
+    from compose_tpu_torch import driver
+    from compose_tpu_torch.ops import sphere
+    from compose_tpu_torch.transport import gallery
+    from compose_tpu_torch.transport.isl import IslConfig, IslTransport
+
+    mesh = cubed_sphere.build(10, 4, device=dev)
+    model = IslTransport(mesh, gallery.create_wind("movingvortices"),
+                         IslConfig(ne=10, filter="none", limiter="none",
+                                   nsub=8))
+    rho = torch.ones((mesh.ncell, mesh.np2), dtype=torch.float64, device=dev)
+    q = driver.init_tracers(mesh, ("vortextracer",))
+    T = 12 * 86400.0
+    for s in range(12):
+        rho, q = model.step(rho, q, s * T / 12, (s + 1) * T / 12)
+    lat, lon = sphere.xyz2ll(mesh.cell_nodes_xyz.reshape(-1, 3))
+    q_exact = gallery.MovingVortices.calc_tracer(T, lat, lon)
+    w = mesh.dgbfi_sphere.reshape(-1)
+    e = q[0].reshape(-1) - q_exact
+    l2 = float(torch.sqrt(torch.sum(w * e * e) / torch.sum(w * q_exact ** 2)))
+    assert l2 < 5e-2, l2

@@ -106,3 +106,40 @@ def test_facet_f_mass_holds_whatever_the_factor(method):
     for s in range(6):
         rho, q = st.step(rho, q, s * DAY, (s + 1) * DAY)
     assert abs(mass(rho, q) - m0) / m0 < 1e-15
+
+
+@pytest.mark.parametrize("dmc", ["none", "es"])
+def test_cdg_mass_under_table_noise(dmc):
+    # CDG under dmc none and es solves with the per-cell sphere mass
+    # matrices (IrData.chol). The same few ulp of noise on their factors
+    # moves the drift over 3 steps at ne3, in IrTransport.F_mass (the
+    # sphere measure), by under 1e-15: no table-dependent drift as under
+    # dmc f. es conserves to roundoff with and without the noise; none
+    # does not enforce the mass, and its drift is the T quadrature's, the
+    # same with the noise.
+    mesh = cs_torch.build(3, 4, device="cpu")
+    q0 = t64(np.asarray(driver_jax.init_tracers(meshes(3)[0], ICS4[:1])))
+    drift = {}
+    for noisy in (False, True):
+        st = ir_torch.IrTransport(
+            mesh, gallery_torch.create_wind("divergent"),
+            ir_torch.IrConfig(ne=3, nsub=2, method="cdg", dmc=dmc,
+                              d2c=False))
+        assert st.F_mass is mesh.dgbfi_sphere
+        if noisy:
+            rng = np.random.default_rng(7)
+            L = st.ird.chol
+            noise = 1 + rng.integers(-3, 4, tuple(L.shape)) * 2.2e-16
+            st.ird = dataclasses.replace(st.ird, chol=L * t64(noise))
+        rho, q = t64(np.ones((mesh.ncell, mesh.np2))), q0
+
+        def mass(rho, q):
+            return float(bfb_sum((st.F_mass * rho * q[0]).reshape(-1)))
+
+        m0 = mass(rho, q)
+        for s in range(3):
+            rho, q = st.step(rho, q, s * DAY, (s + 1) * DAY)
+        drift[noisy] = (mass(rho, q) - m0) / m0
+    assert abs(drift[True] - drift[False]) < 1e-15
+    if dmc == "es":
+        assert abs(drift[True]) < 1e-15

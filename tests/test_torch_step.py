@@ -180,9 +180,10 @@ def test_observer_invariants(runs):
 
 def test_unported_config_raises():
     # What the port still lacks: mixed geometry/interpolation precisions,
-    # p-refinement, the winds beyond divergent and nondivergent, and the
-    # single-precision route of the cell-integrated methods. A target
-    # density needs the mixed method's rho_isl=False.
+    # and the single-precision route of the cell-integrated methods, of
+    # p-refinement and of the physics grid. A target density needs the
+    # mixed method's rho_isl=False, and a -pve filter an ISL-family method
+    # (as compose_tpu's driver refuses it).
     mj, mt = meshes(4)
     with pytest.raises(NotImplementedError):
         IslT(mt, gallery_torch.create_wind("divergent"),
@@ -192,8 +193,14 @@ def test_unported_config_raises():
     q = driver_torch.init_tracers(mt, ["gaussianhills"])
     with pytest.raises(ValueError):
         st.step(rho, q, 0.0, 3600.0, rho_tgt=rho)
-    for kw in (dict(prefine=5), dict(ode="rotate"), dict(ode="movingvortices"),
+    for kw in (dict(prefine=5, x64=False), dict(pg=2, x64=False),
                dict(method="ir", x64=False), dict(method="cdg", x64=False),
                dict(method="isl", x64=False)):
         with pytest.raises(NotImplementedError):
             driver_torch.run(ne=2, nsteps=1, device="cpu", **kw)
+    for kw in (dict(method="ir", filter_="qlt-pve"),
+               dict(method="cdg", filter_="caas-pve")):
+        with pytest.raises(ValueError, match="ISL-family"):
+            driver_torch.run(ne=2, nsteps=1, device="cpu", **kw)
+        with pytest.raises(ValueError, match="ISL-family"):
+            driver_jax.run(ne=2, nsteps=1, verbose=False, **kw)
