@@ -65,6 +65,19 @@ Phases (any failure raises, so the exit code is nonzero):
      perturbed density, the mixed isl method); the battery's ten
      prefine-5 rows, test_prefine_experiments' two runs,
      test_physgrid_coupled_toychem and test_moving_vortices_analytic.
+Phase 2 also times K2 f32 at (40, 5400, 64), and phase 3 adds the small
+references of the new routes (the x64-off route of
+A-C's configs, prefine 5 and pg2; the two mixed geometry/interpolation
+precisions; card against CPU, 1e-5) and, at ne30 with 40 tracers, 12
+steps each, the x64-off paths A' (ir dmc f caas/caas d2c: K1, K2 f32, K4
+twice; run twice, bitwise), B' (cdg dmc es qlt/mn2: K4 twice), C' (the
+mixed isl method: K4 twice), P5' (prefine 5: K1 f32 twice, K2 f32 at np2
+64 and 16, K4) and PG' (pg2 toy chemistry: K1, K2, K4 in f32), and the
+flagship with f64 geometry and f32 interpolation and the reverse (K1-K3);
+then the command line through a subprocess on the card (-rit, the
+Lauritzen, midpoint, footprint and timer lines, NetCDF and raster output
+read back) and a checkpoint resume, bitwise. The kernels' JSON adds
+`launches_precision`, each kernel's launches on those paths.
 The last two lines are the kernels' JSON summary and the device JSON.
 """
 
@@ -297,21 +310,20 @@ def phase_kernels(dev, stats, dtype, ne=30):
         else:
             log(f"limit_caas_{sfx} ({nt}, {nc}, {p2}): bitwise == plain, "
                 f"bounds held")
-    if dtype == F64:
-        # The prefine-5 path's fine-grid limiter: ne30 np8, (40, 5400, 64).
-        F = cubed_sphere.build(ne, 8, device=dev).dgbfi_gll.cpu().numpy()
-        a2 = k2_inputs(F.shape[0], 64, F)
-        out = cdr_fused.limit_caas(*a2)
-        ref = cdr_fused.limit_caas_plain(*a2)
-        torch.cuda.synchronize()
-        same(out, ref, f"limit_caas_{sfx} ({nt}, {F.shape[0]}x64)")
-        if not (bool((out >= a2[3]).all()) and bool((out <= a2[4]).all())):
-            raise AssertionError("K2: output outside [qmin, qmax]")
-        record(f"limit_caas_{sfx}", float((out - ref).abs().max()),
-               lambda a=a2: cdr_fused.limit_caas(*a),
-               lambda a=a2: cdr_fused.limit_caas_plain(*a), a2, out,
-               30 * nt * F.shape[0] * 64, (nt, F.shape[0], 64),
-               summary=False)
+    # The prefine-5 paths' fine-grid limiter: ne30 np8, (40, 5400, 64), in
+    # f64 (P5) and f32 (P5', the single-precision route).
+    F = cubed_sphere.build(ne, 8, device=dev).dgbfi_gll.cpu().numpy()
+    a2 = k2_inputs(F.shape[0], 64, F)
+    out = cdr_fused.limit_caas(*a2)
+    ref = cdr_fused.limit_caas_plain(*a2)
+    torch.cuda.synchronize()
+    same(out, ref, f"limit_caas_{sfx} ({nt}, {F.shape[0]}x64)")
+    if not (bool((out >= a2[3]).all()) and bool((out <= a2[4]).all())):
+        raise AssertionError("K2: output outside [qmin, qmax]")
+    record(f"limit_caas_{sfx}", float((out - ref).abs().max()),
+           lambda a=a2: cdr_fused.limit_caas(*a),
+           lambda a=a2: cdr_fused.limit_caas_plain(*a), a2, out,
+           30 * nt * F.shape[0] * 64, (nt, F.shape[0], 64), summary=False)
 
     # K3 / K4: zero-density nodes exercise the F-weighted fallback.
     ndgll = ncell * np2
@@ -386,7 +398,7 @@ def _state(mesh, nt):
 
 
 def _ir_model(dev, ne, nt, np_=4, mesh_type="geometric", mixed=False,
-              **cfg):
+              dtype=F64, **cfg):
     """(mesh, step, rho, q, measure) of a cell-integrated path: an
     IrTransport of `cfg`, or with `mixed` the mixed isl method (the density
     by IrTransport.remap_rho with `cfg`, the tracers by the ISL step with
@@ -398,7 +410,8 @@ def _ir_model(dev, ne, nt, np_=4, mesh_type="geometric", mixed=False,
     from compose_tpu_torch.transport.ir import IrConfig, IrTransport
     from compose_tpu_torch.transport.isl import IslConfig, IslTransport
 
-    mesh = cubed_sphere.build(ne, np_, device=dev, mesh_type=mesh_type)
+    mesh = cubed_sphere.build(ne, np_, device=dev, mesh_type=mesh_type,
+                              dtype=dtype)
     wind = gallery.create_wind("divergent")
     ir = IrTransport(mesh, wind, IrConfig(ne=mesh.ne, np_=mesh.np_, **cfg))
     if mixed:
@@ -486,7 +499,47 @@ def phase_small_reference(dev):
             raise AssertionError(f"card run disagrees with the CPU run: {err}")
 
 
-def _prefine_setup(dev, ne, np_, nt, **cfg):
+def phase_small_reference_precision(dev):
+    """The single- and mixed-precision routes, the card against the CPU:
+    the single-precision route (x64 off) of paths A-C's configs at ne3, of
+    prefine 5 at ne3 np6 and of the pg2 toy chemistry at ne4; and the two
+    mixed geometry/interpolation precisions of the flagship at ne4, f64.
+    4 tracers, 2 steps of one day. Every route with f32 arithmetic in it is
+    held to 1e-5: torch's CUDA and CPU ops round f32 differently (the
+    f32 interpolation sums 16 products in another order), and one f32 ulp
+    of a weight is ~6e-8 of the result."""
+    routes = [(f"{k.split()[0]}' {k[2:]}, f32", lambda d, kw=kw: _ir_model(
+        d, nt=4, nsub=2, dtype=F32, **kw)) for k, kw in IR_SMALL.items()
+        if not k.startswith("ne2")]
+    routes += [
+        ("prefine 5 ne3 np6 caas/caas dmc eh, f32",
+         lambda d: _prefine_setup(d, 3, 6, 4, dtype=F32, experiment=5,
+                                  dmc="eh", nsub=2)[0]),
+        ("pg2 toy chemistry ne4 pisl caas/caas, f32",
+         lambda d: _pg_setup(d, 4, 4, dtype=F32, nsub=2)[0])]
+    for geom, interp in MIXED:
+        routes.append((f"ne4 pisl caas/caas geom {geom} interp {interp}, f64",
+                       lambda d, g=geom, i=interp: _model(
+                           d, 4, 4, F64, filter="caas", limiter="caas",
+                           nsub=2, geom_dtype=g, interp_dtype=i)
+                       + ("gll",)))
+    for label, make in routes:
+        res = {}
+        for d in ("cpu", dev):
+            mesh, step, rho, q, _ = make(d)
+            step = getattr(step, "step", step)
+            for s in range(2):
+                rho, q = step(rho, q, s * 86400.0, (s + 1) * 86400.0)
+            res[str(d)] = (rho.cpu(), q.cpu())
+        (rc, qc), (rg, qg) = res["cpu"], res[str(dev)]
+        err = max(float((rc - rg).abs().max()), float((qc - qg).abs().max()))
+        log(f"small reference ({label}, 4 tracers, 2 steps): max |card - "
+            f"cpu| = {err:.3e} (tolerance 1e-5)")
+        if not (err <= 1e-5 and bool(torch.isfinite(qg).all())):
+            raise AssertionError(f"card run disagrees with the CPU run: {err}")
+
+
+def _prefine_setup(dev, ne, np_, nt, dtype=F64, **cfg):
     """((mesh, step, rho, q, measure), model) of a p-refinement run with
     caas/caas: the fine grid at np_, the np4 v grid; the primary mesh is
     the v grid for experiment 5, the fine grid for 1. `step` carries the
@@ -496,7 +549,7 @@ def _prefine_setup(dev, ne, np_, nt, **cfg):
     from compose_tpu_torch.transport.prefine import (PRefineConfig,
                                                      PRefineTransport)
 
-    mesh_f = cubed_sphere.build(ne, np_, device=dev)
+    mesh_f = cubed_sphere.build(ne, np_, device=dev, dtype=dtype)
     model = PRefineTransport(mesh_f, gallery.create_wind("divergent"),
                              PRefineConfig(ne=ne, np_=np_, filter="caas",
                                            limiter="caas", **cfg))
@@ -510,7 +563,7 @@ def _prefine_setup(dev, ne, np_, nt, **cfg):
     return (mesh, step) + _state(mesh, nt) + (measure,), model
 
 
-def _pg_setup(dev, ne, nt, **cfg):
+def _pg_setup(dev, ne, nt, dtype=F64, **cfg):
     """((mesh, step, rho, q, "gll"), (pg ops, centers)) of the toy
     chemistry on the pg2 physics grid before each pisl caas/caas step, as
     driver.run(pg=2) couples them: tracers 0 and 1 are toychem1 and
@@ -518,7 +571,7 @@ def _pg_setup(dev, ne, nt, **cfg):
     from compose_tpu_torch import driver
     from compose_tpu_torch.transport.physgrid import PhysgridOps
 
-    mesh, model, rho, q = _model(dev, ne, nt - 2, F64, filter="caas",
+    mesh, model, rho, q = _model(dev, ne, nt - 2, dtype, filter="caas",
                                  limiter="caas", **cfg)
     q = torch.cat([driver.init_tracers(mesh, ["toychem1", "toychem2"]), q])
     pg_ops = PhysgridOps(mesh, 2, "elrecon")
@@ -811,6 +864,169 @@ def phase_prefine_pg(dev):
         f"operator, clip) {cuda_ms(coupling):.3f}")
     _profile(f"path {label}", step, rho, q, 12 * dt, dt)
     return p5, pg
+
+
+# The two mixed geometry/interpolation precisions at x64 on.
+MIXED = (("f64", "f32"), ("f32", "f64"))
+
+
+def phase_precision_paths(dev):
+    """The single-precision route (x64 off) of paths A-C, P5 and PG at
+    ne30, 40 tracers, nsub 8, 12 steps of 1/120 of the period (A' run
+    twice, bitwise), and the flagship's two mixed-precision variants at x64
+    on for 12 steps; each profiled over 3 more steps. f32 paths: mass held
+    to 1e-5 and bounds to 1e-6 (in f64, Observer). Returns {path: launch
+    counts}."""
+    out = {}
+    f32 = dict(mass_tol=1e-5, bounds_tol=1e-6)
+
+    def ir(label, cfg, want, runs=1):
+        res = [run_path(dev, f"path {label}", F32, 12, want, period=120,
+                        setup=_ir_model(dev, 30, 40, nsub=8, dtype=F32,
+                                        **cfg), **f32) for _ in range(runs)]
+        counts, step, rho, q, dt = res[-1]
+        if runs == 2:
+            if not (torch.equal(res[0][2], rho) and torch.equal(res[0][3], q)):
+                raise AssertionError(f"path {label}: two runs differ")
+            log(f"path {label}: two runs bitwise equal")
+        _profile(f"path {label}", step, rho, q, 12 * dt, dt)
+        out[label.split(":")[0]] = res[0][0]
+
+    ir("A': ir dmc f caas/caas d2c, f32", IR_A,
+       {"glbl_caas_f32": 1, "limit_caas_f32": 1, "dss_q_f32": 2}, runs=2)
+    ir("B': cdg dmc es qlt/mn2 d2c, f32", IR_B, {"dss_q_f32": 2})
+    ir("C': mixed isl (remap_rho dmc eh, ISL qlt/mn2), f32", IR_C,
+       {"dss_q_f32": 2})
+
+    setup, model = _prefine_setup(dev, 30, 8, 40, dtype=F32, experiment=5,
+                                  dmc="eh", nsub=8)
+    mf = model.mesh_f
+    label = "P5': prefine 5 ne30 np8/np4 caas/caas dmc eh, f32"
+    out["P5'"], step, rho, q, dt = run_path(
+        dev, f"path {label}", F32, 12,
+        {"glbl_caas_f32": 2, "limit_caas_f32": 2, "dss_q_f32": 1},
+        period=120, setup=setup, first_extra={"limit_caas_f32": 1},
+        dofs=(mf.ncell * mf.np2 * 40, " (the fine np8 grid's DOFs)"), **f32)
+    _profile(f"path {label}", step, rho, q, 12 * dt, dt)
+
+    setup, _ = _pg_setup(dev, 30, 40, dtype=F32, nsub=8)
+
+    def toychem_range(rho, q):
+        # f32 rounds the toy chemistry's cancellations (det - r, 4e-6 -
+        # toychem1) at one ulp of r = k1/4 <= 0.25: 2.98e-8.
+        lo, hi = float(q[:2].amin()), float(q[:2].amax())
+        if not (lo >= -2.98e-8 and hi <= 4e-6 + 2.98e-8):
+            raise AssertionError(f"PG': toy chemistry left [0, 4e-6]: "
+                                 f"[{lo}, {hi}]")
+
+    label = "PG': ne30pg2 toy chemistry, pisl caas/caas, f32"
+    out["PG'"], step, rho, q, dt = run_path(
+        dev, f"path {label}", F32, 12,
+        {"glbl_caas_f32": 2, "limit_caas_f32": 1, "dss_q_f32": 2},
+        period=120, setup=setup, observed=slice(2, None),
+        step_check=toychem_range, **f32)
+    _profile(f"path {label}", step, rho, q, 12 * dt, dt)
+
+    for geom, interp in MIXED:
+        label = f"flagship pisl caas/caas geom {geom} interp {interp}"
+        counts, model, rho, q, dt = run_path(
+            dev, label, F64, 12,
+            {"glbl_caas_f64": 2, "limit_caas_f64": 1, "dss_q_f64": 2},
+            period=120, filter="caas", limiter="caas", nsub=8,
+            geom_dtype=geom, interp_dtype=interp)
+        _profile(label, model.step, rho, q, 12 * dt, dt)
+        out[f"geom{geom}-interp{interp}"] = counts
+    return out
+
+
+def phase_cli(dev):
+    """The command line through a subprocess on the card, its outputs read
+    back (the -rit series, the NetCDF fields, the raster), and a
+    checkpoint resume that continues bitwise like an uninterrupted run."""
+    import os
+    from scipy.io import netcdf_file
+
+    from compose_tpu_torch import checkpoint
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build", "cli")
+    os.makedirs(out_dir, exist_ok=True)
+
+    def cli(args, env=None):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "compose_tpu_torch.driver"] + args,
+            cwd=root, capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, **(env or {})))
+        if res.returncode != 0:
+            raise AssertionError(f"CLI {' '.join(args)} failed:\n"
+                                 f"{res.stderr[-3000:]}")
+        lines = res.stdout.splitlines()
+        if not lines or not lines[-1].startswith("<OL>"):
+            raise AssertionError(f"CLI printed no <OL> line: {lines[-3:]}")
+        log(f"CLI ({time.perf_counter() - t0:.1f} s): {lines[-1]}")
+        return lines
+
+    prefix, rit = os.path.join(out_dir, "run"), os.path.join(out_dir,
+                                                             "rit.json")
+    lines = cli(["-ne", "4", "-nsteps", "2", "-nsub", "2", "-mono", "caas",
+                 "-lim", "caas", "-ic", "gaussianhills", "-ic",
+                 "cosinebells", "-ic", "correlatedcosinebells", "-rit", rit,
+                 "-lauritzen", "-midpoint-check", "-footprint", "-timers",
+                 "-io-type", "netcdf", "-o", prefix])
+    for tag, n in (("footprint> ", 2), ("> mp tracer ", 3),
+                   ("T full step", 1), ("L    l_r ", 1), ("L    fil ", 1)):
+        if len([x for x in lines if x.startswith(tag)]) != n:
+            raise AssertionError(f"CLI: expected {n} '{tag}' lines")
+    with open(rit) as f:
+        series = json.load(f)
+    masses = np.asarray([fs["mass_gll"] for fs in series["fields"].values()])
+    if not (len(series["times"]) == 3 and np.all(np.isfinite(masses))
+            and np.all(np.abs(np.diff(masses[1:], axis=1))
+                       <= 1e-12 * np.abs(masses[1:, 1:]))):
+        raise AssertionError("CLI: the -rit series")
+    r = netcdf_file(prefix + ".nc", "r", mmap=False)
+    nc = {k: np.array(v[:]) for k, v in r.variables.items()}
+    r.close()
+    cnn = 6 * 16 * 9 + 2
+    if not (nc["time"].tolist() == [0.0, 6 * 86400.0, 12 * 86400.0]
+            and nc["density"].shape == (3, cnn)
+            and all(np.all(np.isfinite(nc[k])) for k in nc)
+            and np.all(nc["tracer_cosinebells1"] >= 0.1 - 1e-12)):
+        raise AssertionError("CLI: the NetCDF file")
+    log(f"CLI NetCDF read back: variables {sorted(nc)}, (time, node) = "
+        f"{nc['density'].shape}; -rit: {len(series['fields'])} fields, "
+        f"tracer masses constant to 1e-12")
+    ras = os.path.join(out_dir, "ras")
+    cli(["-ne", "4", "-nsteps", "2", "-nsub", "2", "-method", "ir", "-dmc",
+         "f", "-mono", "caas", "-lim", "caas", "-io-type", "internal",
+         "-res", "16", "-o", ras], env={"COMPOSE_TPU_X64": "0"})
+    with open(ras + ".bin", "rb") as f:
+        hdr = np.fromfile(f, np.int32, 3)
+        frames = np.fromfile(f, np.float32)
+    if not (hdr.tolist() == [6, 16, 32] and frames.size == 6 * 16 * 32
+            and np.all(np.isfinite(frames))):
+        raise AssertionError("CLI: the raster file")
+    log(f"CLI raster read back (x64 off, ir): header {hdr.tolist()}, "
+        f"density in [{frames[:512].min():.4f}, {frames[:512].max():.4f}]")
+
+    # Checkpoint resume on the card: 2 steps straight, against 1 step,
+    # save, restore onto the card, 1 step.
+    _, model, rho, q = _model(dev, 30, 40, F64, filter="caas",
+                              limiter="caas", nsub=8)
+    dt = 86400.0 * 12 / 120
+    r1, q1 = model.step(rho, q, 0.0, dt)
+    r2, q2 = model.step(r1, q1, dt, 2 * dt)
+    path = os.path.join(out_dir, "ckpt")
+    checkpoint.save(path, 1, dt, r1, q1, meta={"ne": 30})
+    step, t, rr, qq, meta = checkpoint.restore(path)
+    if not (rr.is_cuda and step == 1 and meta["ne"] == 30):
+        raise AssertionError("checkpoint: restored state")
+    r2b, q2b = model.step(rr, qq, t, 2 * dt)
+    if not (torch.equal(r2, r2b) and torch.equal(q2, q2b)):
+        raise AssertionError("checkpoint: the resumed run differs")
+    log("checkpoint resume (ne30, 40 tracers, caas/caas f64, on the card): "
+        "bitwise equal to the uninterrupted run")
 
 
 def _log_phases(label, model, rho, q):
@@ -1125,9 +1341,12 @@ def main():
     if "--kernels" in sys.argv[1:]:
         return
     phase_small_reference(dev)
+    phase_small_reference_precision(dev)
     launches = phase_paths(dev)
     ir_launches = phase_ir_paths(dev)
     p5_launches, pg_launches = phase_prefine_pg(dev)
+    prec_launches = phase_precision_paths(dev)
+    phase_cli(dev)
     phase_golden(dev)
 
     keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
@@ -1136,6 +1355,7 @@ def main():
         dict(name=n, route="cuda", source=src, replaces=rep,
              launches=launches[n], launches_ir_a=ir_launches[n],
              launches_p5=p5_launches[n], launches_pg=pg_launches[n],
+             launches_precision={p: c[n] for p, c in prec_launches.items()},
              **{k: stats[n][k] for k in keys})
         for n, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {

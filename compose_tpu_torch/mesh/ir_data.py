@@ -13,8 +13,10 @@ reference's octree search:
   - for facet transport (dmc f, ef): the reference-square GLL mass matrix's
     Cholesky factor, the node Jacobians Jt and the tensor GLL weights.
 
-Built on the host (numpy, and torch f64 on the CPU for the quadrature),
-then moved to the mesh's device; integer tables are int64.
+Built on the host (numpy, and torch f64 on the CPU for the quadrature)
+from the f64 corners, then moved to the mesh's device and rounded once to
+the mesh's dtype (f32 on the single-precision route, as the f32 mesh
+tables are); integer tables are int64.
 """
 
 import dataclasses
@@ -49,24 +51,25 @@ FIELDS = tuple(f.name for f in dataclasses.fields(IrData))
 _CACHE = {}
 
 
-def _tensor(a, device):
+def _tensor(a, device, dtype):
     a = np.asarray(a)
     if a.dtype == np.bool_:
         return torch.tensor(a, dtype=torch.bool, device=device)
     if np.issubdtype(a.dtype, np.integer):
         return torch.tensor(a, dtype=torch.int64, device=device)
-    return torch.tensor(a, dtype=F64, device=device)
+    return torch.tensor(a, dtype=F64, device=device).to(dtype)
 
 
-def from_numpy(tables: dict, device) -> IrData:
+def from_numpy(tables: dict, device, dtype=F64) -> IrData:
     """IrData from numpy tables keyed by the field names (e.g. a
-    compose_tpu IrData's fields converted with np.asarray)."""
-    return IrData(**{k: _tensor(tables[k], device) for k in FIELDS})
+    compose_tpu IrData's fields converted with np.asarray), float tables
+    rounded once to `dtype`."""
+    return IrData(**{k: _tensor(tables[k], device, dtype) for k in FIELDS})
 
 
 def build(mesh: cubed_sphere.CubedSphereMesh, tq_order: int = None) -> IrData:
-    """Cached per mesh geometry and T-fill quadrature order (None: the
-    accuracy-matched order of the mesh's np)."""
+    """Cached per mesh geometry, dtype and T-fill quadrature order (None:
+    the accuracy-matched order of the mesh's np)."""
     rot = (None if mesh.rot_R is None
            else tuple(mesh.rot_R.cpu().reshape(-1).tolist()))
     # Meshes that share (ne, np) (a gllsubcell and a runisubcell mesh, a
@@ -74,9 +77,10 @@ def build(mesh: cubed_sphere.CubedSphereMesh, tq_order: int = None) -> IrData:
     sub = (mesh.sub_parent_ne, None if mesh.sub_breaks is None
            else tuple(mesh.sub_breaks.cpu().tolist()))
     key = (mesh.ne, mesh.np_, tq_order, rot, mesh.nonuni, sub,
-           str(mesh.device))
+           str(mesh.device), mesh.dtype)
     if key not in _CACHE:
-        _CACHE[key] = from_numpy(_build(mesh, tq_order), mesh.device)
+        _CACHE[key] = from_numpy(_build(mesh, tq_order), mesh.device,
+                                 mesh.dtype)
     return _CACHE[key]
 
 

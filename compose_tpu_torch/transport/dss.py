@@ -43,6 +43,19 @@ def dss_q_plain(w, F, q, c2d_idx, c2d_mask, d2c_map):
     return cg[:, d2c_map]
 
 
+def d2c(dg, c2d_idx, c2d_mask, dgbfi):
+    """The dgbfi-weighted average of each continuous node's coincident
+    slots, clipped to their range: dg (..., ndgll) -> (..., cnn). Plain
+    torch ops on any device (the output path's; no kernel)."""
+    vals = dg[..., c2d_idx]                                 # (..., cnn, 4)
+    w = torch.where(c2d_mask, dgbfi[c2d_idx], 0.0)
+    cg = _sum4(w * vals) / _sum4(w)
+    inf = float("inf")
+    mn = torch.amin(torch.where(c2d_mask, vals, inf), dim=-1)
+    mx = torch.amax(torch.where(c2d_mask, vals, -inf), dim=-1)
+    return torch.minimum(torch.maximum(cg, mn), mx)
+
+
 def slot_table(c2d_idx, c2d_mask, d2c_map):
     """The kernel's slot-major table, built once per mesh: row s is the
     c2d_idx row of slot s's node, c2d_idx[d2c_map[s]], as int32 with -1

@@ -32,7 +32,13 @@ pairs of a target run in pair order through a per-step gather table
 (`_TargetTable`), not float atomics, so a step is bitwise reproducible on
 the card; the contractions the JAX package
 writes as explicit left-to-right chains (apply_T_contrib, dot_last,
-mass_target_terms) keep that order here. f64 only.
+mass_target_terms) keep that order here.
+
+The working float type is the mesh's: f64, or f32 on the single-precision
+route (the JAX package with x64 off), where the IR tables are the f64
+ones rounded once (mesh/ir_data.py), the CDR runs K1 and K2 and the d2c
+DSS K4 in f32. The per-cell solves and the target table's sums keep their
+order in both.
 """
 
 import dataclasses
@@ -40,7 +46,6 @@ import dataclasses
 import torch
 
 from .. import basis as basis_mod
-from ..config import F64
 from ..mesh import cubed_sphere, ir_data
 from ..ops import clip, sphere, sqr
 from ..ops.reduce import bfb_sum
@@ -165,10 +170,6 @@ class IrTransport:
     def __init__(self, mesh: cubed_sphere.CubedSphereMesh, wind,
                  config: IrConfig, ird: ir_data.IrData = None):
         config.check()
-        if mesh.dtype != F64:
-            raise NotImplementedError(
-                "the cell-integrated methods run in f64 only (x64=False is "
-                "not ported for ir, cdg and isl)")
         if (mesh.ne, mesh.np_) != (config.ne, config.np_):
             raise ValueError(f"mesh ne{mesh.ne} np{mesh.np_} does not match "
                              f"the config's ne{config.ne} np{config.np_}")
@@ -205,8 +206,7 @@ class IrTransport:
         rem = self._remap_data(ts, tf)
         rho_tgt = self._project(rem, rho, self._fsmoftm_or_ones(rem, rho))
         return limiter_mod.limit_density(
-            self.F_mass, rho_tgt,
-            torch.zeros(self.mesh.ncell, dtype=F64, device=rho.device))
+            self.F_mass, rho_tgt, rho_tgt.new_zeros(self.mesh.ncell))
 
     # ------------------------------------------------------------------
     def _pairs(self, adv_cells):
@@ -232,8 +232,8 @@ class IrTransport:
         src_v = adv_cells[sci]
         tgt_corners = m.corners[tci]
         B = tci.shape[0]
-        T = torch.zeros((B, np2, np2), dtype=F64, device=m.device)
-        ps = torch.zeros((B, np2), dtype=F64, device=m.device)
+        T = vo.new_zeros((B, np2, np2))
+        ps = vo.new_zeros((B, np2))
         # Fan triangles k = 1..n_out-2; the triangles no pair of the chunk
         # has add zeros and are skipped (one host read).
         ktop = min(int(no.max()) - 1, clip.MAX_NVERT - 1)
@@ -260,7 +260,7 @@ class IrTransport:
             ctr = sphere.normalize(torch.mean(tgt_v, dim=-2))
             von = torch.where(valid[..., None], vo, ctr[:, None, :])
             von = von / torch.clamp_min(sphere.norm(von)[..., None],
-                                        torch.finfo(F64).tiny)
+                                        torch.finfo(von.dtype).tiny)
             ftol = 2.220446049250313e-16
             tva, tvb = map(clamp, sqr.sphere_to_ref(
                 tgt_corners[:, None, :, :], von, max_its=15, tol=ftol))
@@ -316,8 +316,8 @@ class IrTransport:
                                         torch.where(pair_mask, 4, 0))
         live = torch.nonzero(no >= 3)[:, 0]
         P, L = pair_tgt.shape[0], live.shape[0]
-        T = torch.zeros((P, m.np2, m.np2), dtype=F64, device=m.device)
-        ps = torch.zeros((P, m.np2), dtype=F64, device=m.device)
+        T = vo.new_zeros((P, m.np2, m.np2))
+        ps = vo.new_zeros((P, m.np2))
         nchunk = -(-L // self.config.pair_chunk)
         size = -(-L // nchunk) if L else 1
         for lo in range(0, L, size):
@@ -463,15 +463,15 @@ class IrTransport:
         within the T-graph bounds (K1 for caas) and the cell-local limiter
         (K2 for caas), bounds expanded where a cell is infeasible."""
         m, cfg, F = self.mesh, self.config, self.F_mass
-        zeros = torch.zeros(m.ncell, dtype=F64, device=m.device)
-        rho_tgt = limiter_mod.limit_density(F, rho_tgt, zeros)
+        rho_tgt = limiter_mod.limit_density(F, rho_tgt,
+                                            rho_tgt.new_zeros(m.ncell))
         q_min, q_max = self._q_bounds(rem, rho, Q)
         nt = Q.shape[0]
         rho_cell = torch.sum(F * rho_tgt, dim=-1)
         Qc_mass = torch.sum(F[None] * Q_tgt, dim=-1)
         redist = self.mrd.redistribute(
             rho_cell, q_min * rho_cell, Qc_mass, q_max * rho_cell,
-            torch.zeros(nt, dtype=F64, device=m.device))
+            rho_cell.new_zeros(nt))
         shape = (nt, m.ncell, m.np2)
         Q_tgt = limiter_mod.limit_tracer(
             F, rho_tgt, Q_tgt, q_min[..., None].expand(shape).contiguous(),

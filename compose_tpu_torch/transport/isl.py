@@ -30,16 +30,19 @@ Steps 3-5 follow the JAX package's general CDR branch (isl.py:493-711).
 
 The working float type is the mesh's: f64, or f32 on the single-precision
 route (the JAX package with x64 off, where every f64 is f32). In f64 the
-geometry and interpolation may also run in f32 (geom_dtype = interp_dtype
-= "f32"), their invariants then enforced by the f64 CDR. Mixed
-geom/interp precisions raise NotImplementedError. Tracers are a dense leading
-axis; rho is (ncell, np2), q is (nt, ncell, np2), both in the mesh's dtype
-on its device.
+geometry and the interpolation may each run in f32, their invariants then
+enforced by the f64 CDR, as in the JAX package's branches: geom_dtype
+alone sets the departure data's type (f32 weights are widened to the
+working type), interp_dtype f32 gathers and contracts rho, the tracers
+and the Jacobian ratio in f32 whatever the geometry's type. Tracers are a
+dense leading axis; rho is (ncell, np2), q is (nt, ncell, np2), both in
+the mesh's dtype on its device.
 """
 
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from .. import basis as basis_mod
@@ -53,6 +56,7 @@ from .fit_extremum import FitExtremum
 _FILTERS = ("qlt", "mn2", "caas", "caas-node", "none")
 _LIMITERS = ("mn2", "caas", "caags", "qlt", "none")
 _TIMEINTS = ("exact", "interp", "line", "interpline")
+_DTYPES = ("f64", "f32")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,19 +77,14 @@ class IslConfig:
     rotate: tuple = None         # (axis, angle) of the mesh's rotation
     interp_dtype: str = "f64"
 
-    def check_ported(self):
-        """Raise NotImplementedError for the configurations the port does
-        not carry, ValueError for unknown option values."""
+    def check(self):
+        """Raise ValueError for unknown option values."""
         for k, allowed in (("filter", _FILTERS), ("limiter", _LIMITERS),
-                           ("timeint", _TIMEINTS)):
+                           ("timeint", _TIMEINTS), ("geom_dtype", _DTYPES),
+                           ("interp_dtype", _DTYPES)):
             if getattr(self, k) not in allowed:
                 raise ValueError(f"IslConfig.{k}={getattr(self, k)!r}: "
                                  f"expected {' | '.join(allowed)}")
-        if (self.geom_dtype, self.interp_dtype) not in (("f64", "f64"),
-                                                        ("f32", "f32")):
-            raise NotImplementedError(
-                f"geom_dtype={self.geom_dtype!r} with interp_dtype="
-                f"{self.interp_dtype!r} is not ported")
 
 
 class IslTransport:
@@ -93,7 +92,7 @@ class IslTransport:
 
     def __init__(self, mesh: cubed_sphere.CubedSphereMesh, wind,
                  config: IslConfig):
-        config.check_ported()
+        config.check()
         if (mesh.ne, mesh.np_) != (config.ne, config.np_):
             raise ValueError(f"mesh ne{mesh.ne} np{mesh.np_} does not match "
                              f"the config's ne{config.ne} np{config.np_}")
@@ -192,7 +191,9 @@ class IslTransport:
         va = self.basis.eval(a)
         vb = self.basis.eval(b)
         w = (vb[:, :, None] * va[:, None, :]).reshape(m.cnn, m.np2)
-        return dep, ci, w
+        # f32 weights widen to the working type; dep stays f32 (the
+        # departure Jacobian runs in f32 and its ratio is widened).
+        return dep, ci, w.to(self.real)
 
     def _interp(self, field, ci, w):
         """field (..., ncell, np2) -> (..., cnn) at the departure points.
@@ -423,6 +424,22 @@ class IslTransport:
                 and cfg.filter not in ("none", "caas-node")):
             return self._mixed_dss(rho_tgt, q_new)
         return rho_tgt, self._dss_q(rho_tgt, q_new)
+
+    def footprint_stats(self, ts, tf):
+        """The ISL communication footprint of the step ts -> tf: per target
+        cell, the departure nodes whose source cell is another cell, plus
+        2 per distinct such source cell (its min and max); returns (min,
+        median, mean, max) over the cells, on the host."""
+        m = self.mesh
+        _, ci, _ = self._departure_data(ts, tf)
+        node_src = ci[self.d2c_map].reshape(m.ncell, m.np2).cpu().numpy()
+        out = node_src != np.arange(m.ncell)[:, None]
+        s = np.sort(np.where(out, node_src, -1), axis=1)
+        nuniq = ((s[:, 1:] != s[:, :-1]) & (s[:, 1:] >= 0)).sum(axis=1) \
+            + (s[:, 0] >= 0)
+        nout = out.sum(axis=1) + 2 * nuniq
+        med = np.partition(nout, len(nout) // 2)[len(nout) // 2]
+        return int(nout.min()), int(med), float(nout.mean()), int(nout.max())
 
     def phase_times(self, rho, q, ts, tf, iters: int = 10):
         """Per-phase wall times of one step (compose_tpu's phase_times):

@@ -280,9 +280,11 @@ def limit_tracer(F, rho, Q, q_min, q_max, Qm_extra, limiter: str = "caas",
         x = limit_caas(rhom, rho, Q, q_min, q_max, Qm_tot)
     else:
         # Zero-density nodes get a vanishing but nonzero QP weight so that
-        # w/a and a/w stay finite. As in the JAX package, 1e-300 rounds to
-        # 0 in f32, where a zero-density node then makes its cell NaN.
-        a = torch.clamp_min(rhom, 1e-300)
+        # w/a and a/w stay finite: 1e-300 in f64, as in the JAX package,
+        # and the smallest normal f32 in f32, where 1e-300 rounds to 0 and
+        # a zero-density node would make its cell's QP return NaN (the
+        # JAX package does that with x64 off).
+        a = torch.clamp_min(rhom, max(1e-300, torch.finfo(rhom.dtype).tiny))
         y = Q * (1.0 / torch.where(rho == 0, 1.0, rho))
         x = _spf_run(limiter, a, Qm_tot, q_min, q_max, y)
         x = torch.where(rho == 0, q_min, x)

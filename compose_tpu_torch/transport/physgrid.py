@@ -18,8 +18,9 @@ slmmir_physgrid.{hpp,cpp}).
   - a cell-local CAAS of the remapped mixing ratio against bounds.
 
 The operators are set up in numpy f64 on the host, as the JAX package sets
-them up; only the remaps and the CAAS run as torch ops on the mesh's
-device.
+them up, and rounded once to the mesh's dtype (f32 on the
+single-precision route); only the remaps and the CAAS run as torch ops on
+the mesh's device.
 """
 
 import numpy as np
@@ -276,17 +277,16 @@ class PhysgridOps:
             op = _interp_matrix(npi, np_) @ inv
         self.op_p_to_d = op
 
-        dev = mesh.device
+        def on_mesh(a):
+            return torch.tensor(np.asarray(a), dtype=F64,
+                                device=mesh.device).to(mesh.dtype)
 
-        def dev64(a):
-            return torch.tensor(np.asarray(a), dtype=F64, device=dev)
-
-        self.gll_met = mesh.jac_node.to(F64)
-        self.fv_met = dev64(self._fv_metdet())
-        self.M_dp_j = dev64(self.M_dp)
-        self.op_j = dev64(op)
-        self.M_pp_j = dev64(self.M_pp)
-        self.w_dd = dev64(w_dd)
+        self.gll_met = mesh.jac_node
+        self.fv_met = on_mesh(self._fv_metdet())
+        self.M_dp_j = on_mesh(self.M_dp)
+        self.op_j = on_mesh(op)
+        self.M_pp_j = on_mesh(self.M_pp)
+        self.w_dd = on_mesh(w_dd)
 
     def _fv_metdet(self):
         """Each FV subcell's mean corner-bilinear |J|: 4x4 Gauss over the

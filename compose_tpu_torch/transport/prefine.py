@@ -25,7 +25,10 @@ One exp-5 step with caas/caas launches K1 on the v-grid rho records
 and K2 in the fine-grid limiter (nt, ncell x np_f^2) and in the t -> v
 transfer (nt, ncell x 16); the first step also runs the v -> t transfer,
 one more K2 launch at the fine np^2. Tracers are a dense leading axis;
-every table lives on the fine mesh's device, in f64.
+every table lives on the fine mesh's device, in its dtype: f64, or f32 on
+the single-precision route, where the transfer operators and weights are
+set up in f64 and rounded once, and K1, K2 and the v-grid DSS (K4) run in
+f32.
 """
 
 import dataclasses
@@ -78,15 +81,16 @@ class PRefineTransport:
         if config.experiment not in (1, 5):
             raise ValueError(f"prefine experiment {config.experiment}: "
                              "expected 1 | 5")
-        if mesh_f.np_ != config.np_ or mesh_f.dtype != F64:
-            raise ValueError("the fine mesh must be the config's np, in f64")
+        if mesh_f.np_ != config.np_:
+            raise ValueError("the fine mesh must be the config's np")
         self.config = config
         self.wind = wind
         self.mesh_f = mesh_f
-        dev = mesh_f.device
+        dev, real = mesh_f.device, mesh_f.dtype
         self.mesh_v = cubed_sphere.build(config.ne, config.v_np,
                                          "GllOffsetNodal",
-                                         rotate=config.rotate, device=dev)
+                                         rotate=config.rotate, device=dev,
+                                         dtype=real)
         mv, mf = self.mesh_v, mesh_f
         self.basis_v = basis_mod.create("GllOffsetNodal", config.v_np)
         self.basis_f = basis_mod.create(config.basis, config.np_)
@@ -94,14 +98,14 @@ class PRefineTransport:
 
         # Coarse -> fine by the plain GLL basis, fine -> coarse by the fine
         # basis.
-        self.C2F = _kron_eval(gll_v, mf.basis_x).to(dev)
-        self.F2C = _kron_eval(self.basis_f, gll_v.x).to(dev)
+        self.C2F = _kron_eval(gll_v, self.basis_f.x).to(dev, real)
+        self.F2C = _kron_eval(self.basis_f, gll_v.x).to(dev, real)
 
         self.Jt_v = mv.jac_node
         self.Jt_f = torch.einsum('fk,ck->cf', self.C2F, self.Jt_v)
         wf = self.basis_f.w
         w2f = (wf.repeat_interleave(config.np_) * wf.repeat(config.np_)).to(
-            dev)
+            dev, real)
         if config.dmc == "es":
             self.F_f = mf.dgbfi_sphere
             self.F_v = mv.dgbfi_sphere
@@ -113,15 +117,15 @@ class PRefineTransport:
         # reference coordinates: departure points interpolated from v.
         rep = mf.cgll_rep.cpu()
         k = rep % mf.np2
-        gx = mf.basis_x.to(dtype=F64, device="cpu")
+        gx = self.basis_f.x
         va = gll_v.eval(gx[k % mf.np_])
         vb = gll_v.eval(gx[k // mf.np_])
         self.vw_f = (vb[:, :, None] * va[:, None, :]).reshape(
-            mf.cnn, config.v_np ** 2).to(dev)
+            mf.cnn, config.v_np ** 2).to(dev, real)
         self.own_cell_f = (rep // mf.np2).to(dev)
 
         # The isoparametric Jacobian's derivative matrix on the v grid.
-        self.D_v = gll_v.eval_deriv(gll_v.x).to(dev)
+        self.D_v = gll_v.eval_deriv(gll_v.x).to(dev, real)
         self.d2c_v = mv.dgll2cgll.reshape(-1)
         self.d2c_f = mf.dgll2cgll.reshape(-1)
         self.Ff_v = self.F_v.reshape(-1).contiguous()
@@ -250,8 +254,7 @@ class PRefineTransport:
                 rel = 1e-2 * (q_max_node - q_min_node)
                 Q_tgt = limiter_mod.limit_tracer(
                     F, rho_f_tgt, Q_tgt, q_min_node - rel, q_max_node + rel,
-                    torch.zeros(Q_tgt.shape[:2], dtype=F64,
-                                device=Q_tgt.device),
+                    Q_tgt.new_zeros(Q_tgt.shape[:2]),
                     limiter=cfg.limiter, expand_bounds_allowed=True)
             lo = (q_min_node * rho_f_tgt[None]).reshape(nt, -1)
             hi = (q_max_node * rho_f_tgt[None]).reshape(nt, -1)
@@ -313,6 +316,6 @@ class PRefineTransport:
             return rho_v, q_v, (rho_f, q_f, False)
         if state is None:
             mv = self.mesh_v
-            state = torch.ones((mv.ncell, mv.np2), dtype=F64,
+            state = torch.ones((mv.ncell, mv.np2), dtype=mv.dtype,
                                device=mv.device)
         return self._step1(rho, q, state, ts, tf)

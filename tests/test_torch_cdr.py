@@ -182,15 +182,17 @@ def test_limit_tracer_mn2_vs_jax(dt, zero_density):
         precomp=(torch.tensor(rhom, dtype=t_dt), T[6], T[7], T[8]),
         return_q=True).numpy()
     assert out.dtype == np_dt
-    # In f32 the weight floor 1e-300 rounds to 0: a zero-density node makes
-    # w/a = 0/0 and its cell's QP NaN, in both packages alike.
+    # In f32 the JAX package's weight floor 1e-300 rounds to 0: a
+    # zero-density node makes w/a = 0/0 and its cell's QP NaN. The port
+    # floors at the smallest normal f32 there and stays finite; elsewhere
+    # the two agree.
     nan = np.isnan(ref)
-    assert np.array_equal(np.isnan(out), nan)
     assert nan.any() == (dt == "f32" and zero_density)
+    assert not np.isnan(out).any()
     ok = ~nan
     assert np.abs(out - ref)[ok].max() <= rtol * np.abs(ref[ok]).max()
-    assert np.all((out >= qmin)[ok]) and np.all((out <= qmax)[ok])
-    feasible = (b >= Qmin) & (b <= Qmax) & ~nan.any(-1)
+    assert np.all(out >= qmin) and np.all(out <= qmax)
+    feasible = (b >= Qmin) & (b <= Qmax)
     mass = (rhom.astype(np.float64) * out).sum(-1)
     scale = np.maximum(np.abs(b), (rhom * np.abs(out)).sum(-1))
     assert feasible.any()

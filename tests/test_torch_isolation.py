@@ -32,6 +32,10 @@ for dtype in (torch.float64, torch.float32):
     rho, q = model.step(rho, q, 0.0, 86400.0)
     assert bool(torch.isfinite(q).all()) and q.shape == (1, mesh.ncell, 16)
     assert q.dtype == rho.dtype == dtype
+from compose_tpu_torch import checkpoint, io, islet_tools, vis
+from compose_tpu_torch.driver import main
+out = main(["-ne", "2", "-nsteps", "1", "-nsub", "1", "-device", "cpu"])
+assert out.l2_err == out.l2_err
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "compose_tpu")]
 assert not bad, bad
@@ -42,7 +46,8 @@ print("STANDALONE_OK")
 
 
 def test_standalone_step_without_jax():
-    # A fresh interpreter: import the port, run one ne2 step on the CPU.
+    # A fresh interpreter: import the port and its output, checkpoint and
+    # Islet-tool modules, run one ne2 step on the CPU and the command line.
     res = subprocess.run([sys.executable, "-c", _STANDALONE],
                          capture_output=True, text=True, timeout=300,
                          cwd=PKG.parent)

@@ -179,25 +179,32 @@ def test_observer_invariants(runs):
 
 
 def test_unported_config_raises():
-    # What the port still lacks: mixed geometry/interpolation precisions,
-    # and the single-precision route of the cell-integrated methods, of
-    # p-refinement and of the physics grid. A target density needs the
-    # mixed method's rho_isl=False, and a -pve filter an ISL-family method
-    # (as compose_tpu's driver refuses it).
+    # Every precision route is ported: mixed geometry/interpolation
+    # precisions, and the single-precision route of the cell-integrated
+    # methods, of p-refinement and of the physics grid, all run. What
+    # raises is what compose_tpu refuses too: a target density needs the
+    # mixed method's rho_isl=False, and a -pve filter an ISL-family method;
+    # unknown precisions are a ValueError.
     mj, mt = meshes(4)
-    with pytest.raises(NotImplementedError):
-        IslT(mt, gallery_torch.create_wind("divergent"),
-             CfgT(ne=4, geom_dtype="f32"))
-    st = IslT(mt, gallery_torch.create_wind("divergent"), CfgT(ne=4))
     rho = torch.ones((mt.ncell, mt.np2), dtype=torch.float64)
     q = driver_torch.init_tracers(mt, ["gaussianhills"])
+    for geom, interp in (("f32", "f64"), ("f64", "f32")):
+        sm = IslT(mt, gallery_torch.create_wind("divergent"),
+                  CfgT(ne=4, geom_dtype=geom, interp_dtype=interp, nsub=1))
+        r1, q1 = sm.step(rho, q, 0.0, 3600.0)
+        assert r1.dtype == q1.dtype == torch.float64
+        assert bool(torch.isfinite(q1).all())
+    with pytest.raises(ValueError):
+        IslT(mt, gallery_torch.create_wind("divergent"),
+             CfgT(ne=4, geom_dtype="f16"))
+    st = IslT(mt, gallery_torch.create_wind("divergent"), CfgT(ne=4))
     with pytest.raises(ValueError):
         st.step(rho, q, 0.0, 3600.0, rho_tgt=rho)
-    for kw in (dict(prefine=5, x64=False), dict(pg=2, x64=False),
-               dict(method="ir", x64=False), dict(method="cdg", x64=False),
-               dict(method="isl", x64=False)):
-        with pytest.raises(NotImplementedError):
-            driver_torch.run(ne=2, nsteps=1, device="cpu", **kw)
+    for kw in (dict(prefine=5), dict(method="ir"), dict(method="cdg"),
+               dict(method="isl"), dict(pg=2, ics=("toychem1", "toychem2"))):
+        out = driver_torch.run(ne=2, nsteps=1, nsub=1, device="cpu",
+                               verbose=False, x64=False, **kw)
+        assert np.isfinite(out.l2_err) and np.isfinite(out.cv)
     for kw in (dict(method="ir", filter_="qlt-pve"),
                dict(method="cdg", filter_="caas-pve")):
         with pytest.raises(ValueError, match="ISL-family"):
