@@ -78,6 +78,20 @@ then the command line through a subprocess on the card (-rit, the
 Lauritzen, midpoint, footprint and timer lines, NetCDF and raster output
 read back) and a checkpoint resume, bitwise. The kernels' JSON adds
 `launches_precision`, each kernel's launches on those paths.
+Then the multi-device paths on the one card through LocalComm (one
+thread and CUDA stream per shard; compose_tpu_torch/parallel): the
+flagship over 8 shards for 12 steps, in contiguous strips and in the 2-D
+tiles of tile_owner with the measured halo, every step bitwise equal to
+the single-device step, inside its halo (coverage_ok), the Observer's bars
+held, and per step K2 8 times, K3 16 times (rho and q on every shard) and
+K1 never (the BFB allreduce sums the global CAAS); ne30 over 16 ragged
+shards for 3 steps (qlt/mn2, caas-node/caas); ShardedIr with path A's
+config over 8 shards for 3 steps and its projection leg, dryrun_ir
+(the sphere geometry's projection and full step at ne4); K2 and K3 at
+their shard-local shapes against their plain versions, timed; and, where
+the machine has 2 or more cards, the flagship over NCCL (DistComm). The
+kernels' JSON adds `launches_sharded`, the launches of the two sharded
+flagship runs.
 The last two lines are the kernels' JSON summary and the device JSON.
 """
 
@@ -939,6 +953,219 @@ def phase_precision_paths(dev):
     return out
 
 
+def _shape_row(stats, name, shape, fn, plain, args, out, flops, dtype):
+    """Time one more shape of a C entry (device time from a CUDA graph, the
+    call, the plain version, the bound) into its `shapes` list."""
+    row = dict(shape=list(shape), ms=device_ms(fn), call_ms=cuda_ms(fn),
+               plain_ms=cuda_ms(plain), **bound(args, out, flops, dtype))
+    stats[name]["shapes"].append(row)
+    log(f"{name} {tuple(shape)} shard-local: bitwise == plain; device "
+        f"{row['ms']:.5f} ms, call {row['call_ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms; bound {row['bound_ms']:.5f} ms "
+        f"({row['bytes'] / 1e6:.2f} MB, {row['bound_ms'] / row['ms']:.1%} "
+        f"of it)")
+
+
+def _sharded_run(label, sh, ref, times, want, ulp_bar=0, bounds=True):
+    """Drive `sh` (a ShardedIsl or ShardedIr) from ref[0] through `times`
+    with every launch count set to 0 just before and read just after:
+    each step against the single-device states `ref` (bitwise, or within
+    `ulp_bar` ulp), its launches against `want` (per step; no other kernel
+    may launch), the halo's coverage, and the Observer's bars in the GLL
+    measure: mass, and bounds unless `bounds` is False (a path without a
+    limiter). Returns the launch counts."""
+    from compose_tpu_torch import _native
+    from compose_tpu_torch.diagnostics import Observer
+
+    rho, q = ref[0]
+    mesh = sh.m
+    obs = Observer(mesh.dgbfi_gll, mesh.dgbfi_sphere,
+                   ["rho"] + [f"q{i}" for i in range(q.shape[0])])
+    obs.add_obs(0.0, rho, list(q))
+    step_s, worst = [], 0.0
+    for k in _native.KERNELS.values():
+        k.launches = 0
+    for s, (t0, t1) in enumerate(times):
+        if not sh.coverage_ok(t0, t1):
+            raise AssertionError(f"{label}: step {s}: the halo misses the "
+                                 f"departure footprint")
+        before = {n: k.launches for n, k in _native.KERNELS.items()}
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        rho, q = sh.step(rho, q, t0, t1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - w0)
+        per = {n: k.launches - before[n] for n, k in _native.KERNELS.items()}
+        if per != {n: want.get(n, 0) for n in _native.KERNELS}:
+            raise AssertionError(f"{label}: step {s}: launches {per}")
+        for a, b in zip((rho, q), ref[s + 1]):
+            ulp = float(((a - b).abs() / (torch.finfo(a.dtype).eps
+                                          * b.abs().clamp_min(1e-300)))
+                        .max())
+            worst = max(worst, ulp)
+        if worst > ulp_bar:
+            raise AssertionError(f"{label}: step {s}: {worst:g} ulp from "
+                                 f"the single-device step")
+        obs.add_obs(t1, rho, list(q))
+    ok, mass_err, bounds_err = obs.check(1e-12, 5e-13 if bounds else
+                                         float("inf"), "gll")
+    if not (ok and bool(torch.isfinite(q).all())):
+        raise AssertionError(f"{label}: Observer check failed: mass "
+                             f"{mass_err:.3e}, bounds {bounds_err:.3e}")
+    sec = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
+    log(f"{label}: {len(times)} steps, each "
+        + ("bitwise equal to" if worst == 0 else f"{worst:g} ulp from")
+        + f" the single-device step; step {sec * 1e3:.3f} ms (median of "
+        f"steps 2..{len(times)}; first {step_s[0] * 1e3:.1f} ms); received "
+        f"per shard and step {sh.bytes_per_step(q.shape[0]) / 1e6:.4f} MB; "
+        f"Observer mass {mass_err:.3e} bounds {bounds_err:.3e}; launches/"
+        f"step " + " ".join(f"{n} {c}" for n, c in want.items()))
+    return {n: k.launches for n, k in _native.KERNELS.items()}
+
+
+def _ref_states(step, rho, q, times):
+    out = [(rho, q)]
+    for t0, t1 in times:
+        out.append(step(*out[-1], t0, t1))
+    return out
+
+
+def _nccl_rank(rank, world, port, ne, nsteps):
+    """One rank of the NCCL leg: the flagship over `world` cards with
+    DistComm, against the single-device step on rank 0's card."""
+    import torch.distributed as dist
+    from compose_tpu_torch.parallel import DistComm, ShardedIsl
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        dev = torch.device("cuda", rank)
+        _, model, rho, q = _model(dev, ne, 40, F64, filter="caas",
+                                  limiter="caas", nsub=8, geom_dtype="f32",
+                                  interp_dtype="f32")
+        sh = ShardedIsl(model, world, comm=DistComm(dev))
+        dt = 86400.0 * 12 / 120
+        ref = (rho, q)
+        for s in range(nsteps):
+            rho, q = sh.step(rho, q, s * dt, (s + 1) * dt)
+            ref = model.step(*ref, s * dt, (s + 1) * dt)
+        if not (torch.equal(rho, ref[0]) and torch.equal(q, ref[1])):
+            raise AssertionError(f"NCCL leg: rank {rank} differs from the "
+                                 "single-device step")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded(dev, stats):
+    """The multi-device paths on the one card through LocalComm (one
+    thread and CUDA stream per shard): the flagship over 8 shards in
+    strips and in tile_owner tiles with the measured halo (12 steps), the
+    ragged ne30 over 16 (3 steps, qlt/mn2 and caas-node/caas), ShardedIr
+    with path A's config (3 steps, and the projection leg bitwise) and
+    dryrun_ir; then
+    K2 and K3 at their shard-local shapes against their plain versions,
+    timed. Returns each kernel's launches in the two flagship runs."""
+    import socket
+
+    from compose_tpu_torch.parallel import ShardedIr, ShardedIsl, tile_owner
+    from compose_tpu_torch.parallel.sharded_ir import dryrun_ir
+    from compose_tpu_torch.transport import cdr_fused, dss
+
+    K2, K3 = "limit_caas_f64", "dss_q_f64"
+    nt = 40
+    dt = 86400.0 * 12 / 120
+    times = [(s * dt, (s + 1) * dt) for s in range(12)]
+    mesh, model, rho, q = _model(dev, 30, nt, F64, filter="caas",
+                                 limiter="caas", nsub=8, geom_dtype="f32",
+                                 interp_dtype="f32")
+    ref = _ref_states(model.step, rho, q, times)
+    flag = {n: 0 for n in KERNELS}
+    shards = {}
+    for label, make in (
+            ("strips", lambda: ShardedIsl(model, 8)),
+            ("tiles, measured halo", lambda: ShardedIsl.with_measured_halo(
+                model, 8, times, owner=tile_owner(mesh, 8)))):
+        sh = shards[label] = make()
+        log(f"sharded flagship ({label}): 8 shards of <= {sh.B} cells, "
+            f"halo {sh.maps.halo_size} cells, DSS halo {sh.halo_slots} "
+            f"slots")
+        got = _sharded_run(f"sharded flagship pisl caas/caas, 8 shards, "
+                           f"{label}", sh, ref, times, {K2: 8, K3: 16})
+        flag = {n: flag[n] + got[n] for n in KERNELS}
+
+    for filt, lim, want in (("qlt", "mn2", {K3: 32}),
+                            ("caas-node", "caas", {K2: 16, K3: 32})):
+        _, m16, rho, q = _model(dev, 30, nt, F64, filter=filt, limiter=lim,
+                                nsub=8, geom_dtype="f32", interp_dtype="f32")
+        ref16 = _ref_states(m16.step, rho, q, times[:3])
+        _sharded_run(f"sharded ne30 over 16 (ragged) {filt}/{lim}",
+                     ShardedIsl(m16, 16), ref16, times[:3], want)
+
+    # ShardedIr, path A's config: projection leg (no CDR, no DSS) and the
+    # full step, held as the JAX package's dryrun_ir holds them (bitwise;
+    # <= 2 ulp).
+    for cfg, want, bar, what in (
+            (dict(IR_A, filter="none", limiter="none", d2c=False), {}, 0,
+             "projection leg (ir dmc f, no CDR, no d2c)"),
+            (IR_A, {K2: 8, K3: 8}, 2, "path A (ir dmc f caas/caas d2c)")):
+        _, step, rho, q, _ = _ir_model(dev, 30, nt, nsub=8, **cfg)
+        refi = _ref_states(step, rho, q, times[:3])
+        _sharded_run(f"ShardedIr {what}, 8 shards",
+                     ShardedIr(step.__self__, 8), refi, times[:3], want,
+                     ulp_bar=bar, bounds=cfg["filter"] != "none")
+    d = dryrun_ir(8, dev)
+    log(f"dryrun_ir (ne4, 8 shards, dmc es): projection {d[0]:.3e}, full "
+        f"step {d[1]:.3e} from the single-device step (bars 0 and 2 ulp)")
+
+    # K2 and K3 at the flagship shards' shapes (strips: 675 cells).
+    rng = np.random.default_rng(20261017)
+    t = shards["strips"].shards[0]
+    B = shards["strips"].B
+    F = t.F.cpu().numpy()
+    r = rng.uniform(0.5, 1.5, (B, 16))
+    r[rng.random((B, 16)) < 0.02] = 0.0
+    qmin = rng.uniform(0.0, 0.5, (nt, B, 16))
+    qmax = qmin + rng.uniform(0.0, 0.5, (nt, B, 16))
+    a2 = [torch.tensor(x, dtype=F64, device=dev) for x in (
+        F * r, r, rng.uniform(-0.2, 1.2, (nt, B, 16)) * r, qmin, qmax,
+        (F * r * rng.uniform(-0.1, 1.1, (nt, B, 16))).sum(-1))]
+    out = cdr_fused.limit_caas(*a2)
+    same(out, cdr_fused.limit_caas_plain(*a2), f"{K2} ({nt}, {B}, 16)")
+    _shape_row(stats, K2, (nt, B, 16), lambda: cdr_fused.limit_caas(*a2),
+               lambda: cdr_fused.limit_caas_plain(*a2), a2, out,
+               30 * nt * B * 16, F64)
+    nin = t.F_ext.shape[0]
+    rr = torch.tensor(rng.uniform(0.5, 1.5, nin), dtype=F64, device=dev)
+    rr[torch.tensor(rng.random(nin) < 0.05, device=dev)] = 0.0
+    for rows in (1, nt):
+        qx = torch.tensor(rng.uniform(0, 1, (rows, nin)), dtype=F64,
+                          device=dev)
+        a3 = (t.F_ext * rr, t.F_ext, qx, t.slots)
+        out = dss.dss_q_slots(*a3)
+        same(out, dss.dss_q_slots_plain(*a3),
+             f"{K3} slots ({rows}, {nin} -> {t.slots.shape[0]})")
+        _shape_row(stats, K3, (rows, nin, t.slots.shape[0]),
+                   lambda a=a3: dss.dss_q_slots(*a),
+                   lambda a=a3: dss.dss_q_slots_plain(*a), a3, out,
+                   17 * rows * t.slots.shape[0], F64)
+
+    ndev = torch.cuda.device_count()
+    if ndev >= 2:
+        with socket.socket() as so:
+            so.bind(("localhost", 0))
+            port = so.getsockname()[1]
+        world = min(ndev, 8)
+        torch.multiprocessing.spawn(_nccl_rank, args=(world, port, 30, 2),
+                                    nprocs=world, join=True)
+        log(f"NCCL leg: the flagship over {world} cards with DistComm, 2 "
+            f"steps, bitwise equal to the single-device step")
+    else:
+        log(f"NCCL leg not run: it needs 2 or more CUDA devices, and this "
+            f"machine has {ndev}")
+    return flag
+
+
 def phase_cli(dev):
     """The command line through a subprocess on the card, its outputs read
     back (the -rit series, the NetCDF fields, the raster), and a
@@ -1346,6 +1573,7 @@ def main():
     ir_launches = phase_ir_paths(dev)
     p5_launches, pg_launches = phase_prefine_pg(dev)
     prec_launches = phase_precision_paths(dev)
+    sharded_launches = phase_sharded(dev, stats)
     phase_cli(dev)
     phase_golden(dev)
 
@@ -1356,6 +1584,7 @@ def main():
              launches=launches[n], launches_ir_a=ir_launches[n],
              launches_p5=p5_launches[n], launches_pg=pg_launches[n],
              launches_precision={p: c[n] for p, c in prec_launches.items()},
+             launches_sharded=sharded_launches[n],
              **{k: stats[n][k] for k in keys})
         for n, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 
 import torch
 
@@ -42,8 +43,9 @@ _ARGTYPES = {
     "glbl_caas": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # rhom, rho, Q, qmin, qmax, b, out, nt, ncell, np2, stream
     "limit_caas": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # w, F, q, slots, out, nt, ndgll, stream
-    "dss_q": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # w, F, q, slots, out, nt, nin (row length of w, F, q), nout (output
+    # slots), stream
+    "dss_q": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _SIGNATURES = {f"{k}_{sfx}": v for k, v in _ARGTYPES.items()
@@ -72,9 +74,18 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libcompose_kernels-{h.hexdigest()[:16]}.so"
 
 
+_BUILD_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=1)
 def lib() -> ctypes.CDLL:
-    """The bound kernel library, built on first call if needed."""
+    """The bound kernel library, built on first call if needed (by one
+    thread, if several ask at once)."""
+    with _BUILD_LOCK:
+        return _load()
+
+
+def _load() -> ctypes.CDLL:
     so = library_path()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -113,18 +124,21 @@ def _wait_all(procs):
 
 class Kernel:
     """One C entry point. Calling it launches the kernel on `stream`,
-    raises on a launch error, and adds one to `launches`."""
+    raises on a launch error, and adds one to `launches` (under a lock:
+    the shards of a LocalComm launch from several threads)."""
 
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
+        self._lock = threading.Lock()
 
     def __call__(self, *args, stream):
         code = getattr(lib(), self.name)(*args, stream)
         if code != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed: cudaError "
                                f"{code}")
-        self.launches += 1
+        with self._lock:
+            self.launches += 1
 
 
 KERNELS = {name: Kernel(name) for name in _SIGNATURES}

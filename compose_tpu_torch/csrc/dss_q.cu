@@ -31,6 +31,13 @@
 // masked slots contributing exact zeros, so all copies agree and equal the
 // plain version's; cube-edge nodes need no fix pass. No atomics; built
 // with --fmad=false.
+//
+// Shard-local use: the rows of w, F and q may be longer (nin) than the
+// number of output slots (nout = rows of the slot table): a shard's DGLL
+// slots followed by the halo slots received from its neighbours, which
+// the slot table indexes but which get no output. A slot whose table row
+// is all -1 (a pad row of a ragged or tiled block) is written 0; every
+// real slot's column 0 is valid, so its result is unchanged.
 
 #include <cuda_runtime.h>
 
@@ -50,11 +57,17 @@ template <class T>
 __global__ void __launch_bounds__(kBlock)
     dss_q_kernel(const T* __restrict__ w, const T* __restrict__ F,
                  const T* __restrict__ q, const int4* __restrict__ slots,
-                 T* __restrict__ out, int nt, int ndgll) {
+                 T* __restrict__ out, int nt, int nin, int nout) {
   const int s = blockIdx.x * kBlock + threadIdx.x;
-  if (s >= ndgll) return;
+  if (s >= nout) return;
   const T zero = T(0);
   const int4 row = slots[s];
+  const int t0 = static_cast<int>(blockIdx.y) * kTracers;
+  const int t1 = min(nt, t0 + kTracers);
+  if (row.x < 0) {  // a pad row
+    for (int t = t0; t < t1; ++t) out[(long)t * nout + s] = zero;
+    return;
+  }
   const int idx[4] = {row.x, row.y, row.z, row.w};
   bool m[4];
   T c[4];  // the merge weights: w, or F at a zero-mass node
@@ -70,11 +83,9 @@ __global__ void __launch_bounds__(kBlock)
     den = sum4(c);
   }
 
-  const int t0 = static_cast<int>(blockIdx.y) * kTracers;
-  const int t1 = min(nt, t0 + kTracers);
 #pragma unroll 2
   for (int t = t0; t < t1; ++t) {
-    const T* qt = q + (long)t * ndgll;
+    const T* qt = q + (long)t * nin;
     T v[4], p[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -89,18 +100,18 @@ __global__ void __launch_bounds__(kBlock)
         mx = real::max(mx, v[k]);
       }
     }
-    out[(long)t * ndgll + s] = real::min(real::max(sum4(p) / den, mn), mx);
+    out[(long)t * nout + s] = real::min(real::max(sum4(p) / den, mn), mx);
   }
 }
 
 template <class T>
 int launch(const T* w, const T* F, const T* q, const int* slots, T* out,
-           int nt, int ndgll, void* stream) {
-  if (nt > 0 && ndgll > 0) {
-    const dim3 grid((ndgll + kBlock - 1) / kBlock,
+           int nt, int nin, int nout, void* stream) {
+  if (nt > 0 && nout > 0) {
+    const dim3 grid((nout + kBlock - 1) / kBlock,
                     (nt + kTracers - 1) / kTracers);
     dss_q_kernel<T><<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-        w, F, q, reinterpret_cast<const int4*>(slots), out, nt, ndgll);
+        w, F, q, reinterpret_cast<const int4*>(slots), out, nt, nin, nout);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -108,13 +119,13 @@ int launch(const T* w, const T* F, const T* q, const int* slots, T* out,
 }  // namespace
 
 extern "C" int dss_q_f64(const double* w, const double* F, const double* q,
-                         const int* slots, double* out, int nt, int ndgll,
-                         void* stream) {
-  return launch(w, F, q, slots, out, nt, ndgll, stream);
+                         const int* slots, double* out, int nt, int nin,
+                         int nout, void* stream) {
+  return launch(w, F, q, slots, out, nt, nin, nout, stream);
 }
 
 extern "C" int dss_q_f32(const float* w, const float* F, const float* q,
-                         const int* slots, float* out, int nt, int ndgll,
-                         void* stream) {
-  return launch(w, F, q, slots, out, nt, ndgll, stream);
+                         const int* slots, float* out, int nt, int nin,
+                         int nout, void* stream) {
+  return launch(w, F, q, slots, out, nt, nin, nout, stream);
 }

@@ -1,0 +1,7 @@
+"""The multi-device paths (compose_tpu.parallel): communicators, the halo
+exchange, and the cell-sharded ISL and IR steps."""
+
+from .comm import DistComm, LocalComm  # noqa: F401
+from .halo import HaloMaps, halo_exchange, tile_owner  # noqa: F401
+from .sharded import ShardedIsl  # noqa: F401
+from .sharded_ir import ShardedIr  # noqa: F401

@@ -25,21 +25,29 @@ from ..ops.reduce import bfb_sum, next_pow2
 # ---------------------------------------------------------------------------
 # K1: global CAAS (compose_tpu's spf.glbl_caas_gsum with gsum = bfb_sum).
 
-def glbl_caas_plain(Q_min, Q_mass, Q_max, extra_mass):
-    """Closed-form global CAAS over the last (cell) axis. Q_*: (..., ncell);
-    extra_mass: (...,). Returns masses summing to sum(Q_mass) + extra_mass,
-    inside [Q_min, Q_max] when feasible."""
+def glbl_caas_gsum(Q_min, Q_mass, Q_max, extra_mass, gsum):
+    """Closed-form global CAAS over the last (cell) axis with a caller's
+    global sum `gsum` (bfb_sum on one device; the sharded steps pass the
+    distributed BFB allreduce, cdr/bfb.py, which is bitwise equal). Q_*:
+    (..., ncell) or a shard's block of it; extra_mass: (...,). Returns
+    masses summing to sum(Q_mass) + extra_mass, inside [Q_min, Q_max]
+    when feasible."""
     delta = torch.where(Q_mass < Q_min, Q_min - Q_mass,
                         torch.where(Q_mass > Q_max, Q_max - Q_mass, 0.0))
-    m = extra_mass - bfb_sum(delta)
+    m = extra_mass - gsum(delta)
     msd = Q_mass + delta
     v_up = torch.where(Q_mass >= Q_max, 0.0, Q_max - msd)
     v_dn = torch.where(Q_mass <= Q_min, 0.0, msd - Q_min)
     v = torch.where((m > 0)[..., None], v_up, v_dn)
-    vsum = bfb_sum(v)
+    vsum = gsum(v)
     nz = vsum != 0
     fac = torch.where(nz, m / torch.where(nz, vsum, 1.0), 0.0)
     return msd + fac[..., None] * v
+
+
+def glbl_caas_plain(Q_min, Q_mass, Q_max, extra_mass):
+    """K1's plain version: glbl_caas_gsum with bfb_sum."""
+    return glbl_caas_gsum(Q_min, Q_mass, Q_max, extra_mass, bfb_sum)
 
 
 @functools.lru_cache(maxsize=None)

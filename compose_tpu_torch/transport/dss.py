@@ -15,6 +15,11 @@ K3 `dss_q_f64`, or K4 `dss_q_f32` on the single-precision route.
 in the fixed order ((s0 + s1) + s2) + s3 in both. The kernel is
 slot-parallel: it reads each slot's node through `slot_table`, a private
 slot-major copy of c2d_idx that leaves the public numbering as it is.
+
+`dss_q_slots` is the same merge on any such slot table: a shard of the
+sharded steps passes its own slots followed by the halo slots it received
+(the rows of w, F and q) and a table over its own slots only (the
+outputs); pad rows (all -1) give 0.
 """
 
 import torch
@@ -84,7 +89,48 @@ def dss_q(w, F, q, c2d_idx, c2d_mask, d2c_map, slots=None):
     _native.kernel("dss_q", dt)(
         _native.require(w, "w", dt, (ndgll,)), F.data_ptr(),
         _native.require(q, "q", dt, (nt, ndgll)), slots.data_ptr(),
-        out.data_ptr(), nt, ndgll, stream=_native.stream_of(q))
+        out.data_ptr(), nt, ndgll, ndgll, stream=_native.stream_of(q))
+    return out
+
+
+def dss_q_slots_plain(w, F, q, slots):
+    """The merge over a slot table: w, F (nin,); q (nt, nin); slots
+    (nout, 4) int, row s the coincident slots of output slot s's node in
+    c2d_idx's column order, -1 where masked. Returns (nt, nout); a row
+    that is all -1 gives 0. Per slot the operations of dss_q_plain."""
+    m = slots >= 0
+    idx = torch.clamp_min(slots, 0).long()
+    vals = torch.where(m, q[:, idx], 0.0)                   # (nt, nout, 4)
+    ws = torch.where(m, w[idx], 0.0)
+    fs = torch.where(m, F[idx], 0.0)
+    den = _sum4(ws)
+    ok = den > 0
+    cg = torch.where(ok, _sum4(ws * vals) / torch.where(ok, den, 1.0),
+                     _sum4(fs * vals) / _sum4(fs))
+    inf = float("inf")
+    mn = torch.amin(torch.where(m, vals, inf), dim=-1)
+    mx = torch.amax(torch.where(m, vals, -inf), dim=-1)
+    cg = torch.minimum(torch.maximum(cg, mn), mx)
+    return torch.where(m[:, 0], cg, 0.0)
+
+
+def dss_q_slots(w, F, q, slots):
+    """K3 (f64) and K4 (f32) over a slot table, arguments as
+    dss_q_slots_plain: the rows of w, F and q (nin) may be longer than the
+    table (nout). CPU tensors: the plain version. CUDA tensors: the
+    kernel; `slots` must then be contiguous int32."""
+    if not q.is_cuda:
+        return dss_q_slots_plain(w, F, q, slots)
+    nt, nin = q.shape
+    nout = slots.shape[0]
+    dt = q.dtype
+    out = q.new_empty((nt, nout))
+    _native.kernel("dss_q", dt)(
+        _native.require(w, "w", dt, (nin,)),
+        _native.require(F, "F", dt, (nin,)),
+        _native.require(q, "q", dt, (nt, nin)),
+        _native.require(slots, "slots", torch.int32, (nout, 4)),
+        out.data_ptr(), nt, nin, nout, stream=_native.stream_of(q))
     return out
 
 

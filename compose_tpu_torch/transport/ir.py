@@ -221,9 +221,10 @@ class IrTransport:
         return (pair_src, ird.cands[land].reshape(-1),
                 ird.cands_mask[land].reshape(-1))
 
-    def _pair_blocks(self, adv_cells, tci, sci, vo, no):
+    def _pair_blocks(self, adv_cells, tci, sci, vo, no, src_corners):
         """T blocks (B, np2, np2) and source-share integrals (B, np2) of one
-        chunk of pairs, from their clipped overlaps (vo, no)."""
+        chunk of pairs, from their clipped overlaps (vo, no); src_corners:
+        the Eulerian corners of each source (CDG's Jacobian ratio)."""
         m, ird, cfg = self.mesh, self.ird, self.config
         np2 = m.np2
         bary, qw = ird.tq_bary, ird.tq_w
@@ -295,19 +296,21 @@ class IrTransport:
                 # The Jacobian ratio Eulerian / advected at the source
                 # reference coordinates.
                 je = sqr.bilinear_jacobian_norm(
-                    m.corners[sci][:, None, :, :], sa, sb)
+                    src_corners[sci][:, None, :, :], sa, sb)
                 jadv = sqr.bilinear_jacobian_norm(src_v[:, None, :, :], sa, sb)
                 d0 = d0 * (je / jadv)
             d0 = torch.where(act[:, None], d0, 0.0)
             T, ps = accumulate(T, ps, d0, phi(ta, tb), phi(sa, sb))
         return T, ps
 
-    def _assemble_T(self, adv_cells, pair_src, pair_tgt, pair_mask):
+    def _assemble_T(self, adv_cells, pair_src, pair_tgt, pair_mask,
+                    src_corners=None):
         """T blocks (P, np2, np2) and raw source shares (P, np2). The clip
         runs on every pair; the quadrature only on the pairs whose overlap
         has a triangle (one host read), in chunks of at most pair_chunk
         pairs. The other pairs' blocks are zero, as the masked quadrature
-        of the JAX package leaves them."""
+        of the JAX package leaves them. pair_src indexes adv_cells and
+        `src_corners` (default the mesh's corners: every cell a source)."""
         m, ird = self.mesh, self.ird
         src_v = adv_cells[pair_src]
         poly0 = torch.cat([src_v, torch.zeros_like(src_v)], dim=-2)
@@ -323,7 +326,8 @@ class IrTransport:
         for lo in range(0, L, size):
             idx = live[lo:lo + size]
             T[idx], ps[idx] = self._pair_blocks(
-                adv_cells, pair_tgt[idx], pair_src[idx], vo[idx], no[idx])
+                adv_cells, pair_tgt[idx], pair_src[idx], vo[idx], no[idx],
+                m.corners if src_corners is None else src_corners)
         return T, ps
 
     @staticmethod
@@ -336,9 +340,10 @@ class IrTransport:
             acc = acc + x[:, j]
         return acc
 
-    def _fsmoftm(self, adv_cells, T):
-        """IR density factor per DGLL node: Eulerian over advected source
-        basis integrals (facet: GLL weights over T's column sums)."""
+    def _fsmoftm(self, adv_cells, T, F_src=None):
+        """IR density factor per DGLL node of each source: Eulerian over
+        advected source basis integrals (facet: GLL weights over T's column
+        sums). F_src: the sources' sphere integrals (default every cell's)."""
         m = self.mesh
         if self.facet:
             colsum = self._src_sum(torch.sum(T, dim=-2),
@@ -347,8 +352,8 @@ class IrTransport:
             return self.ird.gll_w2[None, :] / colsum
         F_adv = cubed_sphere._dgbfi_sphere(
             adv_cells, self.ird.tq_bary, self.ird.tq_w,
-            m.np_).reshape(m.ncell, m.np2)
-        return self.F_sphere / F_adv
+            m.np_).reshape(-1, m.np2)
+        return (self.F_sphere if F_src is None else F_src) / F_adv
 
     def _normalize_ps(self, ps_raw, pair_src):
         """Source-share integrals normalized per source basis function."""

@@ -157,23 +157,28 @@ class IslTransport:
         return timeint.integrate(self.wind.velocity, tf, ts, nodes,
                                  self.config.nsub)
 
-    def _departure_data(self, ts, tf):
+    def _departure_data(self, ts, tf, nodes=None):
+        """(dep, ci, w) of the CGLL nodes, or of the node ids `nodes` only
+        (a shard's): each node's arithmetic is the same either way."""
         m, cfg = self.mesh, self.config
         f32 = cfg.geom_dtype == "f32"
         if self.vmesh is not None:
             # Integrate the coarse velocity grid, then interpolate the
             # departure points to the fine nodes through their owner cells.
             vm = self.vmesh
+            vw, voc = self.v_weights, self.v_own_cell
+            if nodes is not None:
+                vw, voc = vw[nodes], voc[nodes]
             vnodes = vm.cgll_xyz.to(F32) if f32 else vm.cgll_xyz
             vdep = self._trajectories(vnodes, ts, tf,
                                       cfg.timeint == "interpline")
-            dep = timeint.interp_departure(
-                self.v_weights.to(vdep.dtype),
-                vdep[vm.dgll2cgll][self.v_own_cell])
+            dep = timeint.interp_departure(vw.to(vdep.dtype),
+                                           vdep[vm.dgll2cgll][voc])
             dep = sphere.normalize(dep)
         else:
-            nodes = m.cgll_xyz.to(F32) if f32 else m.cgll_xyz
-            dep = self._trajectories(nodes, ts, tf, cfg.timeint == "line")
+            xyz = m.cgll_xyz if nodes is None else m.cgll_xyz[nodes]
+            dep = self._trajectories(xyz.to(F32) if f32 else xyz, ts, tf,
+                                     cfg.timeint == "line")
         if m.nonuni:
             # The nonuniform mesh's locate converges the Newton itself.
             ci, a, b = cubed_sphere.locate(m, dep)
@@ -190,7 +195,7 @@ class IslTransport:
                                          b0=b0)
         va = self.basis.eval(a)
         vb = self.basis.eval(b)
-        w = (vb[:, :, None] * va[:, None, :]).reshape(m.cnn, m.np2)
+        w = (vb[:, :, None] * va[:, None, :]).reshape(-1, m.np2)
         # f32 weights widen to the working type; dep stays f32 (the
         # departure Jacobian runs in f32 and its ratio is widened).
         return dep, ci, w.to(self.real)
@@ -209,7 +214,8 @@ class IslTransport:
 
     def _jacobian_cells(self, pc):
         """Isoparametric |J| of cells with nodal positions pc (ncell, np,
-        np, 3), [j, i] layout, as explicit left-to-right chains."""
+        np, 3), [j, i] layout, as explicit left-to-right chains; any number
+        of cells (a shard's block too)."""
         m = self.mesh
         D = self.deriv_at_nodes.to(pc.dtype)
         pcT = torch.movedim(pc, 0, -1)                  # (j, i, d, cells)
@@ -237,7 +243,7 @@ class IslTransport:
         ub = (fb - f * (dot_d(f, fb)[..., None, :] / r2)) / r
         cr = cross_d(ua, ub)
         jac = torch.sqrt(dot_d(cr, cr))                 # (j, i, cells)
-        return torch.movedim(jac, -1, 0).reshape(m.ncell, m.np2)
+        return torch.movedim(jac, -1, 0).reshape(pc.shape[0], m.np2)
 
     def _jacobian_departure(self, dep):
         m = self.mesh

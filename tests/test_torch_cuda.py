@@ -360,3 +360,66 @@ def test_moving_vortices_analytic(dev):
     e = q[0].reshape(-1) - q_exact
     l2 = float(torch.sqrt(torch.sum(w * e * e) / torch.sum(w * q_exact ** 2)))
     assert l2 < 5e-2, l2
+
+
+# ---------------------------------------------------------------------------
+# The sharded paths (compose_tpu_torch/parallel) on the card.
+
+def _sharded_isl(d, ne=4, ns=8):
+    from compose_tpu_torch import driver
+    from compose_tpu_torch.parallel import ShardedIsl, tile_owner
+    from compose_tpu_torch.transport import gallery
+    from compose_tpu_torch.transport.isl import IslConfig, IslTransport
+
+    mesh = cubed_sphere.build(ne, 4, device=d)
+    model = IslTransport(mesh, gallery.create_wind("divergent"),
+                         IslConfig(ne=ne, nsub=2, filter="caas",
+                                   limiter="caas"))
+    rho = torch.ones((mesh.ncell, 16), dtype=torch.float64, device=d)
+    q = driver.init_tracers(mesh, ("gaussianhills", "slottedcylinders",
+                                   "cosinebells"))
+    return model, ShardedIsl(model, ns, owner=tile_owner(mesh, ns)), rho, q
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, F32], ids=["f64", "f32"])
+def test_dss_q_slots_kernel(dev, dtype):
+    # K3/K4 on each shard's slot table: the rows of w, F and q (its slots
+    # and the received halo slots) longer than the output, pad rows (all
+    # -1) written 0, zero-density nodes on the F fallback.
+    _, sh, _, _ = _sharded_isl(dev, ne=5)
+    rng = np.random.default_rng(3)
+    for t in sh.shards:
+        nin = t.F_ext.shape[0]
+        assert nin > t.slots.shape[0]
+        F = t.F_ext.to(dtype)
+        r = _t(rng.uniform(0.5, 1.5, nin), dev, dtype)
+        r[torch.tensor(rng.random(nin) < 0.05, device=dev)] = 0.0
+        q = _t(rng.uniform(0, 1, (5, nin)), dev, dtype)
+        k = _native.kernel("dss_q", dtype)
+        before = k.launches
+        out = dss.dss_q_slots(F * r, F, q, t.slots)
+        assert k.launches == before + 1
+        assert torch.equal(out, dss.dss_q_slots_plain(F * r, F, q, t.slots))
+        if t.padmask is not None:
+            assert bool((out.reshape(5, -1, 16)[:, t.padmask] == 0).all())
+
+
+def test_sharded_step_card_vs_cpu(dev):
+    # The sharded step (8 tiles of ne4, LocalComm) on the card against
+    # the CPU, and bitwise against the single-device step on the card;
+    # K1 does not launch, K2 once and K3 twice per shard.
+    res = {}
+    for d in ("cpu", dev):
+        model, sh, rho, q = _sharded_isl(d)
+        before = {n: k.launches for n, k in _native.KERNELS.items()}
+        out = sh.step(rho, q, 0.0, 8640.0)
+        if d != "cpu":
+            got = {n: k.launches - before[n]
+                   for n, k in _native.KERNELS.items()}
+            assert got["glbl_caas_f64"] == 0
+            assert got["limit_caas_f64"] == 8 and got["dss_q_f64"] == 16
+            ref = model.step(rho, q, 0.0, 8640.0)
+            assert all(torch.equal(a, b) for a, b in zip(out, ref))
+        res[str(d)] = [x.cpu() for x in out]
+    for a, b in zip(res["cpu"], res[str(dev)]):
+        assert float((a - b).abs().max()) <= 1e-12

@@ -1,6 +1,7 @@
-"""The port stands alone: it imports neither jax nor compose_tpu, builds its
-CUDA kernels only when one is launched, runs on the card unless the CPU is
-asked for, and never moves to another device than the one asked for."""
+"""The port stands alone: it imports neither jax nor compose_tpu (its
+multi-device modules included), builds its CUDA kernels only when one is
+launched, runs on the card unless the CPU is asked for, and never moves
+to another device than the one asked for."""
 
 import pathlib
 import re
@@ -33,6 +34,16 @@ for dtype in (torch.float64, torch.float32):
     assert bool(torch.isfinite(q).all()) and q.shape == (1, mesh.ncell, 16)
     assert q.dtype == rho.dtype == dtype
 from compose_tpu_torch import checkpoint, io, islet_tools, vis
+from compose_tpu_torch.cdr import bfb, qlt_sharded
+from compose_tpu_torch.parallel import comm, halo, sharded, sharded_ir
+mesh = cubed_sphere.build(2, 4, device="cpu")
+model = IslTransport(mesh, gallery.create_wind("divergent"),
+                     IslConfig(ne=2, nsub=1, filter="qlt", limiter="caas"))
+rho = torch.ones((mesh.ncell, mesh.np2), dtype=torch.float64)
+q = driver.init_tracers(mesh, ["gaussianhills"])
+out = sharded.ShardedIsl(model, 3).step(rho, q, 0.0, 3600.0)
+assert all(torch.equal(a, b) for a, b in
+           zip(out, model.step(rho, q, 0.0, 3600.0)))
 from compose_tpu_torch.driver import main
 out = main(["-ne", "2", "-nsteps", "1", "-nsub", "1", "-device", "cpu"])
 assert out.l2_err == out.l2_err
