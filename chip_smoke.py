@@ -57,14 +57,14 @@ Phases (any failure raises, so the exit code is nonzero):
        - PG: ne30pg2, the toy chemistry on the physics grid before each
          pisl caas/caas step: K1, K2, K3 as the flagship; tracers 0-1 in
          [0, 4e-6], the others held to mass and bounds;
-  4. golden battery rows through driver.run, each with its own bars:
-     isl_caas_flagship_f32, pisl qlt/mn2 and caas/mn2 ne10, pisl qlt np6,
-     pisl qlt-pve ne10, the three pisl np12 runs (exact, interp, interp
-     caas) and the four prefine-0 rows (ne6 np8, caas or caas-node, dmc es
-     or eh); then the 42 rows of IR_GOLDEN (ir, cdg, subcell meshes,
-     perturbed density, the mixed isl method); the battery's ten
-     prefine-5 rows, test_prefine_experiments' two runs,
-     test_physgrid_coupled_toychem and test_moving_vortices_analytic.
+  4. the regression battery's 53 rows through compose_tpu_torch.battery
+     (the code of its runner, compose_tpu_torch.tools.run_battery), each
+     with its own bars (isl_caas_flagship_f32 also with the per-step
+     invariants); then the other golden runs (E2E_GOLDEN: pisl qlt/mn2
+     and caas/mn2 ne10, pisl qlt np6, pisl qlt-pve ne10, the three pisl
+     np12 runs, the four test_golden_* IR/isl rows,
+     test_prefine_experiments' two runs, test_physgrid_coupled_toychem)
+     and test_moving_vortices_analytic.
 Phase 2 also times K2 f32 at (40, 5400, 64), and phase 3 adds the small
 references of the new routes (the x64-off route of
 A-C's configs, prefine 5 and pg2; the two mixed geometry/interpolation
@@ -92,6 +92,18 @@ their shard-local shapes against their plain versions, timed; and, where
 the machine has 2 or more cards, the flagship over NCCL (DistComm). The
 kernels' JSON adds `launches_sharded`, the launches of the two sharded
 flagship runs.
+Then the entry points (phase_entry_points): `compose_tpu_torch.bench` at
+full size (its JSON line, the invariants held), the QLT perf test (nc
+5400, 40 tracers, 20 reps, 8 shards over LocalComm, bitwise), the step
+profiler's table, and the DTensor cell-sharded flagship
+(parallel/sharding.py) at world size 1 over NCCL for 3 steps, held to the
+single-device step (1e-13; whether bitwise is printed) with K1 2, K2 1,
+K3 2 launches per step and profiled; then over 2 gloo ranks on this card
+where gloo takes CUDA tensors (a probe in spawned ranks first; the op a
+rank refused or died in is printed instead), over 8 gloo ranks on the
+CPU (its collectives at ne30), and with 2 or more cards one NCCL rank
+per card. The kernels' JSON adds `launches_gspmd`, the launches of the
+world-size-1 run.
 The last two lines are the kernels' JSON summary and the device JSON.
 """
 
@@ -1066,8 +1078,6 @@ def phase_sharded(dev, stats):
     dryrun_ir; then
     K2 and K3 at their shard-local shapes against their plain versions,
     timed. Returns each kernel's launches in the two flagship runs."""
-    import socket
-
     from compose_tpu_torch.parallel import ShardedIr, ShardedIsl, tile_owner
     from compose_tpu_torch.parallel.sharded_ir import dryrun_ir
     from compose_tpu_torch.transport import cdr_fused, dss
@@ -1152,11 +1162,9 @@ def phase_sharded(dev, stats):
 
     ndev = torch.cuda.device_count()
     if ndev >= 2:
-        with socket.socket() as so:
-            so.bind(("localhost", 0))
-            port = so.getsockname()[1]
         world = min(ndev, 8)
-        torch.multiprocessing.spawn(_nccl_rank, args=(world, port, 30, 2),
+        torch.multiprocessing.spawn(_nccl_rank,
+                                    args=(world, _free_port(), 30, 2),
                                     nprocs=world, join=True)
         log(f"NCCL leg: the flagship over {world} cards with DistComm, 2 "
             f"steps, bitwise equal to the single-device step")
@@ -1164,6 +1172,266 @@ def phase_sharded(dev, stats):
         log(f"NCCL leg not run: it needs 2 or more CUDA devices, and this "
             f"machine has {ndev}")
     return flag
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as so:
+        so.bind(("localhost", 0))
+        return so.getsockname()[1]
+
+
+def _dtensor_flagship(dev, mesh, world, nsteps, label, verbose=True):
+    """The DTensor flagship (sharded_step on the cells mesh) for `nsteps`
+    steps from rho 1 and the bench tracers, against the single-device
+    step on `dev` every step. Returns a dict: the max abs difference
+    (diff), whether every step was bitwise, the per-step seconds
+    (step_s), the launch counts (set to 0 just before the steps), the
+    first step's collectives (comms, CommCounter.per_op) and the ops that
+    issued them (triggers), and the step, its last state and the step
+    times."""
+    from compose_tpu_torch import _native
+    from compose_tpu_torch.parallel import shard_state, sharded_step
+    from compose_tpu_torch.parallel.sharding import CommCounter
+
+    _, model, rho, q = _model(dev, 30, 40, F64, filter="caas",
+                              limiter="caas", nsub=8, geom_dtype="f32",
+                              interp_dtype="f32")
+    dt = 86400.0 * 12 / 120
+    times = [(s * dt, (s + 1) * dt) for s in range(nsteps)]
+    ref = _ref_states(model.step, rho, q, times)
+    step = sharded_step(model, mesh)
+    state = shard_state(mesh, rho, q)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    for k in _native.KERNELS.values():
+        k.launches = 0
+    diff, bitwise, step_s, comms = 0.0, True, [], None
+    for s, (t0, t1) in enumerate(times):
+        sync()
+        w0 = time.perf_counter()
+        if s == 0:
+            cc = CommCounter()
+            with cc:
+                state = step(*state, t0, t1)
+            comms = cc.per_op()
+            triggers = [f"{t[1]} {t[2]}" for t in cc.triggers]
+        else:
+            state = step(*state, t0, t1)
+        sync()
+        step_s.append(time.perf_counter() - w0)
+        for a, b in zip(state, ref[s + 1]):
+            full = a.full_tensor()
+            bitwise = bitwise and torch.equal(full, b)
+            diff = max(diff, float((full - b).abs().max()))
+    launches = {n: k.launches for n, k in _native.KERNELS.items()}
+    (log if verbose else (lambda *a: None))(
+        f"{label}: {world} rank(s), {nsteps} steps: step "
+        f"{statistics.median(step_s[1:]) * 1e3:.3f} ms (median of steps "
+        f"2..{nsteps}; first, with the collective counter, "
+        f"{step_s[0] * 1e3:.1f} ms); max |DTensor - single-device| "
+        f"{diff:.3e} (bar 1e-13; {'bitwise' if bitwise else 'not bitwise'}"
+        f"); launches " + " ".join(f"{n} {c}" for n, c in launches.items()
+                                   if c) + f"; collectives in step 1 {comms}"
+        f", issued by {triggers}")
+    if not diff < 1e-13:
+        raise AssertionError(f"{label}: {diff:.3e} from the single-device "
+                             f"step")
+    return dict(diff=diff, bitwise=bitwise, step_s=step_s, launches=launches,
+                comms=comms, triggers=triggers, step=step, state=state,
+                times=times)
+
+
+def _dtensor_rank(rank, world, backend, init, tmp, probe, dev_type):
+    """One rank of a DTensor leg over `world` processes with `backend`,
+    on card r % device_count (dev_type "cuda") or on the CPU with one
+    thread (dev_type "cpu"). With `probe`: only the DTensor
+    collectives of the step (distribute_tensor's scatter, all-gather,
+    all-reduce, and an all-gather under CommCounter) on CUDA tensors, each
+    op's name appended to tmp/trace<rank> before it runs, so that a
+    crash names its op, and a refusal is written there. Else the flagship
+    for 2 steps against the single-device step; rank 0 writes its result
+    to tmp/rank0.json."""
+    import datetime
+    import faulthandler
+    import os
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard, distribute_tensor
+    from compose_tpu_torch.parallel import cell_mesh
+    from compose_tpu_torch.parallel.sharding import (CommCounter,
+                                                     received_bytes)
+
+    faulthandler.enable()
+    if dev_type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    else:
+        dev = torch.device("cpu")
+        torch.set_num_threads(1)
+    # A rank that refuses a collective leaves the others waiting in it:
+    # the timeout ends the wait.
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world, timeout=datetime.timedelta(
+                                seconds=60 if probe else 600))
+    try:
+        mesh = cell_mesh(world, dev_type)
+        if probe:
+            x = torch.arange(4.0 * world, device=dev)
+
+            def counted(fn):
+                with CommCounter():
+                    return fn()
+
+            ops = {
+                "distribute_tensor": lambda: distribute_tensor(
+                    x, mesh, [Shard(0)]),
+                "full_tensor": lambda: distribute_tensor(
+                    x, mesh, [Shard(0)]).full_tensor(),
+                "sum": lambda: distribute_tensor(
+                    x, mesh, [Shard(0)]).sum().full_tensor(),
+                "full_tensor under CommCounter": lambda: counted(
+                    lambda: distribute_tensor(
+                        x, mesh, [Shard(0)]).full_tensor())}
+            trace = os.path.join(tmp, f"trace{rank}")
+            for name, op in ops.items():
+                with open(trace, "a") as f:
+                    f.write(name + "\n")
+                try:
+                    op()
+                    torch.cuda.synchronize(dev)
+                except RuntimeError as e:
+                    with open(trace, "a") as f:
+                        f.write(f"refused: {e!r:.300}\n")
+                    return
+            return
+        res = _dtensor_flagship(dev, mesh, world, 2, f"DTensor flagship, "
+                                f"{backend} rank {rank}", verbose=rank == 0)
+        if rank == 0:
+            keep = ("diff", "bitwise", "step_s", "comms", "triggers")
+            with open(os.path.join(tmp, "rank0.json"), "w") as f:
+                json.dump(dict({k: res[k] for k in keep}, received=(
+                    received_bytes(res["comms"], world))), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_dtensor(world, backend, label, dev_type="cuda"):
+    """The DTensor flagship over `world` spawned ranks with `backend` on
+    the cards (after a probe of its collectives on CUDA tensors: a probe
+    that a rank refuses or dies in is logged with its op, and the leg is
+    not run; returns None) or on the CPU (dev_type "cpu")."""
+    import os
+    import tempfile
+
+    from torch.multiprocessing import ProcessExitedException
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def spawn(probe):
+            torch.multiprocessing.spawn(
+                _dtensor_rank, args=(world, backend,
+                                     f"tcp://localhost:{_free_port()}", tmp,
+                                     probe, dev_type), nprocs=world,
+                join=True)
+
+        def traces():
+            out = []
+            for r in range(world):
+                path = os.path.join(tmp, f"trace{r}")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        out.append(f"rank {r}: "
+                                   + " > ".join(f.read().split("\n")[:-1]))
+            return "; ".join(out)
+
+        try:
+            if dev_type == "cuda":
+                spawn(True)
+        except ProcessExitedException as e:
+            log(f"{label}: not run; a rank died in the probe of the "
+                f"collectives on CUDA tensors ({e}; ops reached: "
+                f"{traces()})")
+            return None
+        if "refused" in traces():
+            log(f"{label}: not run; {backend} refused a collective on CUDA "
+                f"tensors ({traces()})")
+            return None
+        spawn(False)
+        with open(os.path.join(tmp, "rank0.json")) as f:
+            res = json.load(f)
+    log(f"{label}: {world} ranks, second step {res['step_s'][-1] * 1e3:.3f} "
+        f"ms, max |DTensor - single-device| {res['diff']:.3e} "
+        f"({'bitwise' if res['bitwise'] else 'not bitwise'}); collectives "
+        f"per step {res['comms']} (issued by {res['triggers']}), received "
+        f"per rank {res['received'] / 1e6:.4f} MB")
+    return res
+
+
+def phase_entry_points(dev):
+    """The port's entry points on the card: the bench at full size (its
+    JSON line), the QLT perf test (nc 5400, nt 40, nr 20, 8 shards over
+    LocalComm, bitwise), profile_step's table, and the DTensor cell-sharded
+    flagship (parallel/sharding.py): world size 1 on this card (NCCL),
+    held to the single-device step with K1, K2 and K3 launched; 2 gloo
+    ranks on this card if gloo takes CUDA tensors; 8 gloo ranks on the
+    CPU; and with 2 or more cards an NCCL rank per card. Returns each
+    kernel's launches in the world-size-1 run."""
+    import tempfile
+
+    import torch.distributed as dist
+    from compose_tpu_torch import bench
+    from compose_tpu_torch.parallel import cell_mesh
+    from compose_tpu_torch.tools import profile_step, qlt_perftest
+
+    t0 = time.perf_counter()
+    out = bench.run_bench()
+    log(json.dumps(out))
+    bad = bench.failures(out)
+    if bad:
+        raise AssertionError(f"bench: {bad}")
+    d = out["detail"]
+    log(f"bench: {out['value']:.4e} tracer-DOF/s, "
+        f"{d['sec_per_step'] * 1e3:.3f} ms/step (host clock), median step "
+        f"{d['step_ms_median']:.3f} ms (CUDA events), "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    res = qlt_perftest.run(5400, 40, 20, 8, dev)
+    if not res["bitwise"]:
+        raise AssertionError("qlt_perftest: sharded QLT differs")
+    profile_step.profile(device=dev)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                                rank=0, world_size=1)
+        try:
+            mesh = cell_mesh(1, "cuda")
+            res = _dtensor_flagship(dev, mesh, 1, 3,
+                                    "DTensor flagship (sharded_step), NCCL")
+            launches = res["launches"]
+            want = {"glbl_caas_f64": 2, "limit_caas_f64": 1, "dss_q_f64": 2}
+            expect = {n: want.get(n, 0) * 3 for n in KERNELS}
+            if launches != expect:
+                raise AssertionError(f"DTensor flagship: launches {launches}"
+                                     f" != {expect}")
+            _profile("DTensor flagship", res["step"], *res["state"],
+                     res["times"][-1][1], res["times"][0][1], nsteps=2)
+        finally:
+            dist.destroy_process_group()
+
+    _spawn_dtensor(2, "gloo", "DTensor flagship, 2 gloo ranks on one card")
+    # The collectives at 8 ranks, as ShardedIsl's 8 shards: gloo on the
+    # CPU, one thread per rank.
+    _spawn_dtensor(8, "gloo", "DTensor flagship, 8 gloo ranks on the CPU",
+                   dev_type="cpu")
+    ndev = torch.cuda.device_count()
+    if ndev >= 2:
+        _spawn_dtensor(min(ndev, 8), "nccl",
+                       "DTensor flagship, one NCCL rank per card")
+    else:
+        log(f"DTensor NCCL leg over cards not run: it needs 2 or more CUDA "
+            f"devices, and this machine has {ndev}")
+    log(f"entry points phase: {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def phase_cli(dev):
@@ -1285,163 +1553,46 @@ def row_ok(out, bars):
     return ok
 
 
-SC, GH = ("slottedcylinders",), ("gaussianhills",)
 ICS3 = ("slottedcylinders", "cosinebells", "gaussianhills")
-ICS5 = ("gaussianhills", "slottedcylinders", "cosinebells",
-        "correlatedcosinebells", "xyztrig")
-
-
-def _bat(l2, **bars):
-    # tests/test_regression_battery.py:_run_row: l2 may be 0 (its bars are
-    # all >= 1e-6), min and max within 5e-13.
-    return dict(bars, l2=l2, pos=False, slack=5e-13)
-
-
-_IR = dict(method="ir", filter_="none", limiter="none", d2c=False)
-_QLT = dict(filter_="qlt", limiter="mn2", d2c=False)
-_SUB = dict(ne=5, tq=4, method="cdg", dmc="ef", **_QLT)
+GH = ("gaussianhills",)
 _B01 = dict(min=0.1, max=1.0)
-_BGH = dict(min=1.495e-8, max=0.956)
-# The golden rows of the cell-integrated methods, the subcell meshes and
-# the mixed isl method: name -> (driver.run arguments over np 4 and 12
-# steps, bars), each as tests/test_regression_battery.py (rows ir_np3
-# through perturb_div, and isl_caas, isl_mn2, isl_np3_qlt) or
-# tests/test_transport_e2e.py (test_golden_*) holds the JAX package. The
-# battery's -rit rows (cdg96_qlt_ef, ir96_qlt_ef, ir96_np2_ne15) run
-# without the observer output, which only exercises the writer.
-IR_GOLDEN = {
-    "isl_caas": (dict(ne=10, ics=ICS3, method="isl", filter_="caas",
-                      limiter="mn2"), _bat(3.47e-1, cv_gll=5e-14, **_B01)),
-    "isl_mn2": (dict(ne=10, ics=ICS3, method="isl", filter_="mn2",
-                     limiter="mn2"), _bat(3.47e-1, cv_gll=5e-14, **_B01)),
-    "isl_np3_qlt": (dict(ne=10, np_=3, ics=GH, method="isl", filter_="qlt",
-                         limiter="mn2"), _bat(9.05e-2, cv_gll=2e-14)),
-    "ir_np3": (dict(_IR, ne=10, np_=3, ics=GH), _bat(2.43e-2, cv=1e-14)),
-    "ir_np3_qlt": (dict(_QLT, ne=10, np_=3, ics=GH, method="ir"),
-                   _bat(3.18e-2, cv=4e-15, min=1.495e-08, max=9.518e-01)),
-    "ir_np3_caas": (dict(_QLT, ne=10, np_=3, ics=GH, method="ir",
-                         filter_="caas"),
-                    _bat(3.18e-2, cv=4e-15, min=1.495e-08, max=9.518e-01)),
-    "ir_np3_mn2": (dict(_QLT, ne=10, np_=3, ics=GH, method="ir",
-                        filter_="mn2"),
-                   _bat(3.18e-2, cv=4e-15, min=1.495e-08, max=9.518e-01)),
-    "ir_np3_d2c": (dict(_IR, ne=10, np_=3, ics=GH, d2c=True),
-                   _bat(3.64e-2, cv=3e-15)),
-    "cdg_np4_d2c": (dict(_IR, ne=10, ics=GH, method="cdg", d2c=True),
-                    _bat(1.02e-2, cv=3.5e-15)),
-    "ir_qlt_limcaas": (dict(_QLT, ne=10, ics=SC, method="ir",
-                            limiter="caas"),
-                       _bat(3.0e-1, cv=3e-14, **_B01)),
-    "cdg_qlt": (dict(_QLT, ne=10, ics=SC, method="cdg"),
-                _bat(3.03e-1, cv=3e-14, **_B01)),
-    "ir_ccb2": (dict(_IR, ne=10, ics=("gaussianhills",
-                                      "correlatedcosinebells")),
-                _bat(1.02e-2, cv=2e-7)),
-    "ir_dmc_es": (dict(_IR, ne=10, ics=GH, dmc="es"), _bat(9.1e-3, cv=2e-13)),
-    "cdg_dmc_es": (dict(_IR, ne=10, ics=GH, method="cdg", dmc="es"),
-                   _bat(9.1e-3, cv=2e-13)),
-    "ir_dmc_eh": (dict(_IR, ne=10, ics=GH, dmc="eh"),
-                  _bat(9.1e-3, cv_gll=5e-15)),
-    "ir_dmc_geh": (dict(_IR, ne=10, ics=GH, dmc="geh"),
-                   _bat(9.1e-3, cv_gll=2e-14)),
-    "ir_qlt_dmc_es": (dict(_QLT, ne=10, ics=SC, method="ir", dmc="es"),
-                      _bat(3.1e-1, cv=2.3e-13, **_B01)),
-    "ir_qlt_dmc_eh": (dict(_QLT, ne=10, ics=SC, method="ir", dmc="eh"),
-                      _bat(3.0e-1, cv_gll=5e-14, **_B01)),
-    "ir_dmc_f": (dict(_IR, ne=10, ics=GH, method="cdg", dmc="f"),
-                 _bat(1.42e-2, cv_gll=6e-14)),
-    "ir_dmc_f_np2_ne30": (dict(_IR, ne=30, np_=2, ics=GH, method="cdg",
-                               dmc="f"), _bat(6.49e-2, cv_gll=1.4e-13)),
-    "cdg96_qlt_f": (dict(_QLT, ne=5, nsteps=96, ics=SC, method="cdg",
-                         dmc="f"), _bat(4.6e-1, cv_gll=4e-14, **_B01)),
-    "cdg96_qlt_f_caas": (dict(_QLT, ne=5, nsteps=96, ics=SC, method="cdg",
-                              dmc="f", limiter="caas"),
-                         _bat(4.6e-1, cv_gll=4e-14, **_B01)),
-    "cdg96_qlt_f_caags": (dict(_QLT, ne=5, nsteps=96, ics=SC, method="cdg",
-                               dmc="f", limiter="caags"),
-                          _bat(4.6e-1, cv_gll=4e-14, **_B01)),
-    "ir96_qlt_f": (dict(_QLT, ne=5, nsteps=96, ics=SC, method="ir",
-                        dmc="f"), _bat(4.6e-1, cv_gll=4e-14, **_B01)),
-    "cdg96_qlt_ef": (dict(_QLT, ne=5, nsteps=96, ics=SC, method="cdg",
-                          dmc="ef"), _bat(4.6e-1, cv_gll=2e-14, **_B01)),
-    "ir96_qlt_ef": (dict(_QLT, ne=5, nsteps=96, ics=SC, method="ir",
-                         dmc="ef"), _bat(4.6e-1, cv_gll=2e-14, **_B01)),
-    "ir96_np2_ne15": (dict(_QLT, ne=15, np_=2, nsteps=96, ics=SC,
-                           method="cdg", dmc="ef"),
-                      _bat(4.5e-1, cv_gll=2.2e-14, **_B01)),
-    "ir_qlt_2ics": (dict(_QLT, ne=10, ics=("gaussianhills",
-                                           "slottedcylinders"),
-                         method="ir", dmc="f"),
-                    _bat(1.5e-2, cv_gll=8e-14, min=0.0, max=0.957)),
-    "sub96_gll": (dict(_SUB, nsteps=96, ics=SC, mesh_type="gllsubcell"),
-                  _bat(4.6e-1, cv_gll=2e-14, **_B01)),
-    "sub96_runi": (dict(_SUB, nsteps=96, ics=SC, mesh_type="runisubcell"),
-                   _bat(4.5e-1, cv_gll=2e-14, **_B01)),
-    "sub12_gll": (dict(_SUB, ics=GH, mesh_type="gllsubcell"),
-                  _bat(7.40e-2, cv_gll=9e-15, min=0.0, max=0.96)),
-    "sub12_runi": (dict(_SUB, ics=GH, mesh_type="runisubcell"),
-                   _bat(5.41e-2, cv_gll=5e-15, min=0.0, max=0.96)),
-    "sub_np10_ne2": (dict(_SUB, ne=2, np_=10, ics=GH,
-                          mesh_type="runisubcell"),
-                     _bat(3.5e-2, cv_gll=3e-15, min=0.0, max=0.96)),
-    "cmbc_f": (dict(_QLT, ne=10, ics=ICS5, method="cdg", dmc="f"),
-               _bat(1.45e-2, cv_gll=6e-14, **_BGH)),
-    "cmbc_es": (dict(_QLT, ne=10, ics=ICS5, method="ir", dmc="es"),
-                _bat(9.18e-3, cv=2e-13, **_BGH)),
-    "cmbc_eh": (dict(_QLT, ne=10, ics=ICS5, method="ir", dmc="eh"),
-                _bat(9.18e-3, cv_gll=1e-14, **_BGH)),
-    "perturb_nondiv": (dict(_QLT, ne=10, ics=("constant",),
-                            ode="nondivergent", method="cdg", dmc="ef",
-                            perturb_rho=0.05),
-                       _bat(1e-6, cv_gll=5e-14, min=0.42 - 1e-6,
-                            max=0.42 + 1e-6)),
-    "perturb_div": (dict(_QLT, ne=10, ics=("constant",), method="cdg",
-                         dmc="ef", perturb_rho=0.05),
-                    _bat(1e-6, cv_gll=5e-14, min=0.42 - 1e-6,
-                         max=0.42 + 1e-6)),
+_STD = dict(cv_gll=5e-14, step=True, **_B01)
+_CC = dict(filter_="caas", limiter="caas")
+# The golden runs of tests/test_transport_e2e.py and the other JAX tests
+# that are not battery rows: name -> (driver.run arguments over np 4 and
+# 12 steps, bars as those tests hold the JAX package).
+E2E_GOLDEN = {
+    "pisl_qlt_ne10": (dict(ne=10, ics=ICS3, filter_="qlt", limiter="mn2"),
+                      dict(_STD, l2=3.34e-1)),
+    "pisl_caas_ne10": (dict(ne=10, ics=ICS3, filter_="caas", limiter="mn2"),
+                       dict(_STD, l2=3.47e-1)),
+    "pisl_qlt_np6": (dict(ne=6, np_=6, ics=ICS3, filter_="qlt",
+                          limiter="mn2"), dict(_STD, l2=3.34e-1)),
+    "pisl_qlt_pve_ne10": (dict(ne=10, ics=ICS3, filter_="qlt-pve",
+                               limiter="mn2"),
+                          dict(_STD, l2=3.36e-1, min=0.0, max=2.0)),
+    "pisl_np12_exact": (dict(ne=3, np_=12, ics=GH, filter_="none",
+                             limiter="none"), dict(l2=8.793e-3)),
+    "pisl_np12_interp": (dict(ne=3, np_=12, ics=GH, filter_="none",
+                              limiter="none", timeint="interp"),
+                         dict(l2=9.939e-3)),
+    "pisl_np12_interp_caas": (
+        dict(ne=3, np_=12, ics=("slottedcylinders",), filter_="caas",
+             limiter="mn2", timeint="interp"),
+        dict(l2=2.896e-1, cv_gll=5e-14, **_B01)),
     "test_golden_ir_ne10": (dict(ne=10, ics=GH, method="ir", filter_="none",
                                  limiter="none"), dict(l2=1.02e-2, cv=8e-15)),
     "test_golden_ir_qlt_slotted": (
-        dict(ne=10, ics=SC, method="ir", filter_="qlt", limiter="mn2"),
+        dict(ne=10, ics=("slottedcylinders",), method="ir", filter_="qlt",
+             limiter="mn2"),
         dict(l2=3.0e-1, cv=3e-14, slack=5e-13, **_B01)),
     "test_golden_isl_qlt_ne10": (
         dict(ne=10, ics=ICS3, method="isl", filter_="qlt", limiter="mn2"),
-        dict(l2=3.47e-1, cv_gll=5e-14, step=True, **_B01)),
+        dict(_STD, l2=3.47e-1)),
     "test_golden_tracer_consistency": (
         dict(ne=10, ics=("constant",), method="isl", filter_="qlt",
              limiter="mn2"),
         dict(l2=3e-15, pos=False, cv_gll=1e-13, min=0.42, max=0.42)),
-}
-
-
-_P5 = dict(ne=6, np_=8, nsteps=13, ics=GH, timeint="interp", prefine=5)
-_CN = dict(filter_="caas-node", limiter="caas")
-_CC = dict(filter_="caas", limiter="caas")
-_OFF = dict(basis="GllOffsetNodal")
-# The regression battery's ten prefine-5 rows (ne6, fine np8, 13 steps)
-# and the other golden runs of this slice: name -> (driver.run arguments,
-# bars), as tests/test_regression_battery.py and tests/test_transport_e2e.py
-# hold the JAX package.
-PREF_GOLDEN = {
-    "pref5_es_caas": (dict(_P5, dmc="es", **_CC), _bat(5.885e-3, cv=4e-14)),
-    "pref5_eh_caas": (dict(_P5, dmc="eh", **_CC),
-                      _bat(5.886e-3, cv_gll=2e-14)),
-    "pref5_es_caasnode": (dict(_P5, dmc="es", **_CN),
-                          _bat(5.885e-3, cv=4e-14)),
-    "pref5_eh_caasnode": (dict(_P5, dmc="eh", **_CN),
-                          _bat(5.886e-3, cv_gll=2e-14)),
-    "pref5_none": (dict(_P5, dmc="es", filter_="none", limiter="none"),
-                   _bat(4.2e-3)),
-    "pref5_rotated": (dict(_P5, dmc="eh", rotate_grid=True, **_CN),
-                      _bat(5.886e-3, cv_gll=2e-14)),
-    "pref5_es_offset": (dict(_P5, dmc="es", **_CC, **_OFF),
-                        _bat(5.885e-3, cv=4e-14)),
-    "pref5_eh_offset": (dict(_P5, dmc="eh", **_CC, **_OFF),
-                        _bat(5.886e-3, cv_gll=2e-14)),
-    "pref5_es_cn_offset": (dict(_P5, dmc="es", **_CN, **_OFF),
-                           _bat(5.885e-3, cv=4e-14)),
-    "pref5_eh_cn_offset": (dict(_P5, dmc="eh", **_CN, **_OFF),
-                           _bat(5.886e-3, cv_gll=2e-14)),
     "test_prefine_experiments[5]": (
         dict(ne=3, np_=6, nsteps=3, ics=GH, prefine=5, **_CC),
         dict(l2=0.2, cv_gll=5e-14, step=True)),
@@ -1453,6 +1604,20 @@ PREF_GOLDEN = {
              **_CC),
         dict(l2=float("inf"), pos=False, min=0.0, max=4.0000001e-6)),
 }
+# Battery rows also held to the per-step invariants (mass < 1e-12,
+# bounds < 5e-13), beyond the battery's own bars.
+STEP_CHECKED = ("isl_caas_flagship_f32",)
+
+
+def _log_golden(name, kw, sec, out, bars):
+    shown = ", ".join(f"{k} {bars[k]:g}" for k in ("l2", "cv", "cv_gll",
+                                                    "min", "max")
+                      if k in bars)
+    log(f"golden {name} (ne{kw['ne']} np{kw.get('np_', 4)}, "
+        f"{kw.get('nsteps', 12)} steps, {sec:.1f} s): l2 {out.l2_err:.4e} "
+        f"cv_gll {out.cv_gll:.3e} cv {out.cv:.3e} min {out.min_e:.5g} max "
+        f"{out.max_e:.5g} step-mass {out.max_step_mass_err:.3e} "
+        f"step-bounds {out.max_step_bounds_err:.3e} (bars: {shown})")
 
 
 def golden_moving_vortices(dev):
@@ -1479,62 +1644,30 @@ def golden_moving_vortices(dev):
 
 
 def phase_golden(dev):
-    """Golden battery rows through driver.run, each with its own bars, as
-    tests/test_transport_e2e.py and tests/test_regression_battery.py hold
-    the JAX package."""
-    from compose_tpu_torch import driver
-    ics = ("slottedcylinders", "cosinebells", "gaussianhills")
-    gh = ("gaussianhills",)
-    std = dict(cv_gll=5e-14, min=0.1, max=1.0, step=True)
-    pref = dict(ne=6, np_=8, nsteps=13, ics=gh, timeint="interp")
-    rows = (
-        ("isl_caas_flagship_f32", dict(std, l2=3.47e-1),
-         dict(ne=10, ics=ics, filter_="caas", limiter="caas",
-              geom_dtype="f32", interp_dtype="f32")),
-        ("pisl_qlt_ne10", dict(std, l2=3.34e-1),
-         dict(ne=10, ics=ics, filter_="qlt", limiter="mn2")),
-        ("pisl_caas_ne10", dict(std, l2=3.47e-1),
-         dict(ne=10, ics=ics, filter_="caas", limiter="mn2")),
-        ("pisl_qlt_np6", dict(std, l2=3.34e-1),
-         dict(ne=6, np_=6, ics=ics, filter_="qlt", limiter="mn2")),
-        ("pisl_qlt_pve_ne10", dict(std, l2=3.36e-1, min=0.0, max=2.0),
-         dict(ne=10, ics=ics, filter_="qlt-pve", limiter="mn2")),
-        ("pisl_np12_exact", dict(l2=8.793e-3),
-         dict(ne=3, np_=12, ics=gh, filter_="none", limiter="none")),
-        ("pisl_np12_interp", dict(l2=9.939e-3),
-         dict(ne=3, np_=12, ics=gh, filter_="none", limiter="none",
-              timeint="interp")),
-        ("pisl_np12_interp_caas",
-         dict(l2=2.896e-1, cv_gll=5e-14, min=0.1, max=1.0),
-         dict(ne=3, np_=12, ics=("slottedcylinders",), filter_="caas",
-              limiter="mn2", timeint="interp")),
-        ("pref0_es_caas", dict(l2=5.968e-3, cv=2e-14),
-         dict(pref, filter_="caas", limiter="caas", dmc="es")),
-        ("pref0_eh_caas", dict(l2=5.968e-3, cv_gll=2e-14),
-         dict(pref, filter_="caas", limiter="caas", dmc="eh")),
-        ("pref0_es_caasnode", dict(l2=5.968e-3, cv=2e-14),
-         dict(pref, filter_="caas-node", limiter="caas", dmc="es")),
-        ("pref0_eh_caasnode", dict(l2=5.968e-3, cv_gll=2e-14),
-         dict(pref, filter_="caas-node", limiter="caas", dmc="eh")),
-    )
-    rows += tuple((name, bars, kw) for name, (kw, bars) in
-                  list(IR_GOLDEN.items()) + list(PREF_GOLDEN.items()))
-    for name, bars, kw in rows:
+    """The regression battery's 53 rows through compose_tpu_torch.battery
+    (the code its runner, compose_tpu_torch.tools.run_battery, runs), each
+    with its own bars; then the golden runs of tests/test_transport_e2e.py
+    and the other JAX tests (E2E_GOLDEN) and the moving vortices."""
+    from compose_tpu_torch import battery, driver
+
+    for row_id, _, kw, asserts in battery.ROWS:
+        t0 = time.perf_counter()
+        out, _, ok = battery.run_row(row_id, dev)
+        if row_id in STEP_CHECKED:
+            ok = ok and row_ok(out, dict(l2=float("inf"), pos=False,
+                                         step=True))
+        _log_golden(row_id, kw, time.perf_counter() - t0, out, asserts)
+        if not ok:
+            raise AssertionError(f"battery row {row_id} failed")
+    for name, (kw, bars) in E2E_GOLDEN.items():
         kw = dict(dict(np_=4, nsteps=12), **kw)
         t0 = time.perf_counter()
         out = driver.run(verbose=False, device=dev, **kw)
-        sec = time.perf_counter() - t0
-        shown = ", ".join(f"{k} {bars[k]:g}" for k in ("l2", "cv", "cv_gll",
-                                                        "min", "max")
-                          if k in bars)
-        log(f"golden {name} (ne{kw['ne']} np{kw['np_']}, {kw['nsteps']} "
-            f"steps, {sec:.1f} s): l2 {out.l2_err:.4e} cv_gll {out.cv_gll:.3e} cv "
-            f"{out.cv:.3e} min {out.min_e:.5g} max {out.max_e:.5g} "
-            f"step-mass {out.max_step_mass_err:.3e} step-bounds "
-            f"{out.max_step_bounds_err:.3e} (bars: {shown})")
+        _log_golden(name, kw, time.perf_counter() - t0, out, bars)
         if not row_ok(out, bars):
             raise AssertionError(f"golden row {name} failed")
     golden_moving_vortices(dev)
+
 
 
 def main():
@@ -1574,6 +1707,7 @@ def main():
     p5_launches, pg_launches = phase_prefine_pg(dev)
     prec_launches = phase_precision_paths(dev)
     sharded_launches = phase_sharded(dev, stats)
+    gspmd_launches = phase_entry_points(dev)
     phase_cli(dev)
     phase_golden(dev)
 
@@ -1585,6 +1719,7 @@ def main():
              launches_p5=p5_launches[n], launches_pg=pg_launches[n],
              launches_precision={p: c[n] for p, c in prec_launches.items()},
              launches_sharded=sharded_launches[n],
+             launches_gspmd=gspmd_launches[n],
              **{k: stats[n][k] for k in keys})
         for n, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,11 @@ import: CPU-only machines import every module without nvcc.
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``. Each is called through its `Kernel` in `KERNELS`,
 which turns a nonzero code into an exception and counts the launch.
+
+A wrapper given DTensors (torch.distributed.tensor, the cell-sharded step
+of parallel/sharding.py) cannot hand their storage to a kernel: it routes
+the call through `on_local`, which places the operands as the kernel needs
+them and launches it on each rank's local tensors.
 """
 
 import ctypes
@@ -154,6 +159,38 @@ def kernel(base: str, dtype) -> Kernel:
 
 def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def has_dtensor(*args) -> bool:
+    """Whether any argument is a DTensor. Plain tensors and numbers answer
+    without importing torch.distributed."""
+    for a in args:
+        if isinstance(a, torch.Tensor) and type(a) is not torch.Tensor:
+            from torch.distributed.tensor import DTensor
+            if isinstance(a, DTensor):
+                return True
+    return False
+
+
+def on_local(fn, args, placements=None, out_placements=None, n_out=1):
+    """fn(*args) for a call with DTensor operands, through
+    torch.distributed.tensor.experimental.local_map: each DTensor is first
+    redistributed to its entry of `placements` (one placement list per
+    argument; None: Replicate for every one), fn runs on the rank's local
+    tensors (plain tensors, which stand for replicated values, and numbers
+    pass as they are), and its `n_out` tensor outputs are wrapped as
+    DTensors with `out_placements` (default Replicate)."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    rep = [Replicate()]
+    placements = placements or [rep] * len(args)
+    in_pl = tuple(p if isinstance(a, torch.Tensor) else None
+                  for a, p in zip(args, placements))
+    if out_placements is None:
+        out_placements = rep if n_out == 1 else (rep,) * n_out
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=in_pl, redistribute_inputs=True)(*args)
 
 
 def require(t, name, dtype, shape):

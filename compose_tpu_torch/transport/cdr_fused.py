@@ -11,6 +11,11 @@ Each wrapper takes the plain PyTorch version for a CPU tensor and launches
 the CUDA kernel (compose_tpu_torch/csrc) of the tensors' dtype for a CUDA
 tensor (`glbl_caas_f64`/`_f32`, `limit_caas_f64`/`_f32`); it never falls
 back. `_native.KERNELS[name].launches` counts each kernel's launches.
+CUDA DTensors (the cell-sharded step of parallel/sharding.py) reach the
+same kernels on each rank's local tensors (`_native.on_local`): K1 reduces
+over every cell, so its rows come whole to each rank; K2 is cell-local and
+runs on each rank's cells where the operands are evenly sharded on their
+cell axis (`limit_caas_placements`).
 """
 
 import functools
@@ -78,6 +83,9 @@ def glbl_caas(Q_min, Q_mass, Q_max, extra_mass):
     version."""
     if not Q_mass.is_cuda:
         return glbl_caas_plain(Q_min, Q_mass, Q_max, extra_mass)
+    if _native.has_dtensor(Q_min, Q_mass, Q_max, extra_mass):
+        return _native.on_local(glbl_caas,
+                                (Q_min, Q_mass, Q_max, extra_mass))
     dt, shape = Q_mass.dtype, Q_mass.shape
     ncell = shape[-1]
     nt = Q_mass.numel() // max(ncell, 1)
@@ -112,6 +120,21 @@ def limit_caas_plain(rhom, rho, Q, q_min, q_max, b):
     return torch.where(rho == 0, q_min, x)
 
 
+def limit_caas_placements(Q):
+    """K2's (input placements, output placements) for a DTensor Q (nt,
+    ncell, np2): each rank's cells when Q is sharded on its cell axis and
+    the ranks divide the cells evenly (so every shard ends on a cell and
+    the shards are equal, as DTensor's local wrap assumes), else None:
+    every operand whole on each rank."""
+    from torch.distributed.tensor import Shard
+
+    mesh = Q.device_mesh
+    if (Q.placements == (Shard(1),) and mesh.ndim == 1
+            and Q.shape[1] % mesh.size() == 0):
+        return [[Shard(0)]] * 2 + [[Shard(1)]] * 4, [Shard(1)]
+    return None, None
+
+
 def limit_caas(rhom, rho, Q, q_min, q_max, b):
     """K2. Shapes as limit_caas_plain, f64 or f32, any np2 from 4 to 256.
     CPU tensors: the plain version. CUDA tensors: the kernel
@@ -119,6 +142,12 @@ def limit_caas(rhom, rho, Q, q_min, q_max, b):
     version."""
     if not Q.is_cuda:
         return limit_caas_plain(rhom, rho, Q, q_min, q_max, b)
+    args = (rhom, rho, Q, q_min, q_max, b)
+    if _native.has_dtensor(*args):
+        # A plain operand is whole on every rank: shard only DTensors.
+        sharded = all(_native.has_dtensor(x) for x in args)
+        return _native.on_local(limit_caas, args, *(
+            limit_caas_placements(Q) if sharded else (None, None)))
     nt, ncell, np2 = Q.shape
     dt = Q.dtype
     # The contiguous operands stay referenced until the launch is queued.

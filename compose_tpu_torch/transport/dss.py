@@ -10,7 +10,10 @@ writes the result back to every slot. Tracers use w = F * rho
 
 The wrapper takes the plain PyTorch version for a CPU tensor and launches
 the CUDA kernel (csrc/dss_q.cu) of the tensors' dtype for a CUDA tensor:
-K3 `dss_q_f64`, or K4 `dss_q_f32` on the single-precision route.
+K3 `dss_q_f64`, or K4 `dss_q_f32` on the single-precision route. CUDA
+DTensors (the cell-sharded step of parallel/sharding.py) come whole to
+each rank, since a node's slots lie in several cells, and the kernel runs
+on the local copy (`_native.on_local`).
 `_native.KERNELS[name].launches` counts each kernel's launches. Sums run
 in the fixed order ((s0 + s1) + s2) + s3 in both. The kernel is
 slot-parallel: it reads each slot's node through `slot_table`, a private
@@ -79,6 +82,9 @@ def dss_q(w, F, q, c2d_idx, c2d_mask, d2c_map, slots=None):
     tables, which are then not checked again."""
     if not q.is_cuda:
         return dss_q_plain(w, F, q, c2d_idx, c2d_mask, d2c_map)
+    args = (w, F, q, c2d_idx, c2d_mask, d2c_map, slots)
+    if _native.has_dtensor(*args):
+        return _native.on_local(dss_q, args)
     nt, ndgll = q.shape
     dt = q.dtype
     if slots is None:

@@ -10,6 +10,7 @@ import re
 import numpy as np
 import torch
 
+from .. import _native
 from ..ops import local_qp
 from .cdr_fused import limit_caas
 
@@ -171,6 +172,10 @@ def _local_qlt_tensor2d(a, b, xlo, xhi, y):
     if tree is None:
         x, _ = local_qp.solve_1eq_bc_qp(a, a, b, xlo, xhi, y)
         return x
+    if _native.has_dtensor(a, b, xlo, xhi, y):
+        # The tree fills its node masses in place, which DTensor cannot
+        # propagate into plain buffers: each rank solves its whole copy.
+        return _native.on_local(_local_qlt_tensor2d, (a, b, xlo, xhi, y))
     dev = y.device
     memb = tree.memb.to(dtype=y.dtype, device=dev)
     lmass = torch.einsum('...i,ni->...n', a * xlo, memb)
@@ -207,6 +212,12 @@ def _expand_bounds(rhom, q_min, q_max, Qm_extra, lo, hi, rhom_tot):
     act = lo | hi
     if not bool(torch.any(act)):
         return q_min, q_max
+    args = (rhom, q_min, q_max, Qm_extra, lo, hi, rhom_tot)
+    if _native.has_dtensor(*args):
+        # The active rows' count depends on the data (nonzero): DTensor
+        # has no sharding strategy for that, so each rank expands its
+        # whole copy.
+        return _native.on_local(_expand_bounds, args, n_out=2)
     rhom = rhom.expand(q_min.shape)
     rows = torch.nonzero(act, as_tuple=True)
     neg = lo[rows]

@@ -13,6 +13,7 @@ sum(Q_mass) + extra_mass, inside [Q_min, Q_max] when feasible.
 
 import torch
 
+from .. import _native
 from ..cdr import qlt as qlt_mod
 from ..ops import local_qp
 from ..ops.reduce import bfb_sum
@@ -62,6 +63,11 @@ class MassRedistributor:
             return glbl_caas(Q_min, Q_mass, Q_max, extra_mass)
         if self.method == "mn2":
             return run_mn2(Q_min, Q_mass, Q_max, extra_mass)
+        args = (rho_mass, Q_min, Q_mass, Q_max, extra_mass)
+        if _native.has_dtensor(*args):
+            # The tree fills its node arrays in place, which DTensor cannot
+            # propagate into plain buffers: each rank runs its whole copy.
+            return _native.on_local(self.redistribute, args)
         squeeze = Q_mass.dim() == 1
         Qm, Qm_min, Qm_max = (torch.atleast_2d(x)
                               for x in (Q_mass, Q_min, Q_max))

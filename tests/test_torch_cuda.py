@@ -423,3 +423,80 @@ def test_sharded_step_card_vs_cpu(dev):
         res[str(d)] = [x.cpu() for x in out]
     for a, b in zip(res["cpu"], res[str(dev)]):
         assert float((a - b).abs().max()) <= 1e-12
+
+
+@pytest.fixture
+def one_rank(dev, tmp_path):
+    """A one-rank NCCL process group and its ("cells",) mesh on the card."""
+    import torch.distributed as dist
+    from compose_tpu_torch.parallel import cell_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        yield cell_mesh(1, "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_kernels_on_dtensors(dev, one_rank):
+    # CUDA DTensors reach K1, K2 and K3 through local_map (K2 cell-sharded
+    # when Q is sharded on its cell axis), never their plain versions.
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    rng = np.random.default_rng(5)
+    mn = rng.uniform(0, 1, (3, 96))
+    k1 = [_t(a, dev) for a in (mn, rng.uniform(-.5, 2.5, (3, 96)),
+                               mn + rng.uniform(0, 1, (3, 96)),
+                               rng.uniform(-1, 1, 3))]
+    rho = rng.uniform(0.5, 1.5, (96, 16))
+    qmin = rng.uniform(0, 0.5, (3, 96, 16))
+    k2 = [_t(a, dev) for a in (
+        rng.uniform(0.5, 1.5, (96, 16)) * 1e-3 * rho, rho,
+        rng.uniform(-0.2, 1.2, (3, 96, 16)) * rho, qmin,
+        qmin + rng.uniform(0, 0.5, (3, 96, 16)),
+        rng.uniform(0, 1e-2, (3, 96)))]
+    mesh = cubed_sphere.build(4, 4, device=dev)
+    F = mesh.dgbfi_gll.reshape(-1)
+    q = _t(rng.uniform(0, 1, (2, F.numel())), dev)
+    k3 = (F * 2.0, F, q, mesh.c2d_idx, mesh.c2d_mask,
+          mesh.dgll2cgll.reshape(-1))
+    k2_pl = [Shard(0)] * 2 + [Shard(1)] * 4
+    for name, fn, plain, args, pl in (
+            ("glbl_caas_f64", cdr_fused.glbl_caas, cdr_fused.glbl_caas_plain,
+             k1, [Shard(0)] * 4),
+            ("limit_caas_f64", cdr_fused.limit_caas,
+             cdr_fused.limit_caas_plain, k2, k2_pl),
+            ("dss_q_f64", dss.dss_q, dss.dss_q_plain, k3, [Shard(0)] * 6)):
+        dargs = [distribute_tensor(a, one_rank, [p])
+                 if a.is_floating_point() else a for a, p in zip(args, pl)]
+        k = _native.KERNELS[name]
+        before = k.launches
+        out = fn(*dargs)
+        assert k.launches == before + 1, name
+        assert torch.equal(out.full_tensor(), plain(*args)), name
+
+
+def test_dtensor_step_card(dev, one_rank):
+    # The DTensor step at world size 1 on the card (ne4, caas/caas, 2
+    # tracers): the single-device step's bits, through K1, K2 and K3.
+    from compose_tpu_torch import driver
+    from compose_tpu_torch.parallel import shard_state, sharded_step
+    from compose_tpu_torch.transport import gallery
+    from compose_tpu_torch.transport.isl import IslConfig, IslTransport
+
+    mesh = cubed_sphere.build(4, 4, device=dev)
+    model = IslTransport(mesh, gallery.create_wind("divergent"),
+                         IslConfig(ne=4, filter="caas", limiter="caas",
+                                   nsub=2))
+    rho = torch.ones((mesh.ncell, 16), dtype=torch.float64, device=dev)
+    q = driver.init_tracers(mesh, ["gaussianhills", "slottedcylinders"])
+    ref = model.step(rho, q, 0.0, 86400.0)
+    before = {n: k.launches for n, k in _native.KERNELS.items()}
+    out = sharded_step(model, one_rank)(*shard_state(one_rank, rho, q), 0.0,
+                                        86400.0)
+    got = {n: k.launches - before[n] for n, k in _native.KERNELS.items()}
+    assert (got["glbl_caas_f64"], got["limit_caas_f64"],
+            got["dss_q_f64"]) == (2, 1, 2)
+    for a, b in zip(out, ref):
+        assert float((a.full_tensor() - b).abs().max()) < 1e-13

@@ -1,5 +1,5 @@
 """The port stands alone: it imports neither jax nor compose_tpu (its
-multi-device modules included), builds its CUDA kernels only when one is
+multi-device modules, the DTensor step and the entry points included), builds its CUDA kernels only when one is
 launched, runs on the card unless the CPU is asked for, and never moves
 to another device than the one asked for."""
 
@@ -47,6 +47,12 @@ assert all(torch.equal(a, b) for a, b in
 from compose_tpu_torch.driver import main
 out = main(["-ne", "2", "-nsteps", "1", "-nsub", "1", "-device", "cpu"])
 assert out.l2_err == out.l2_err
+from compose_tpu_torch import battery, bench
+from compose_tpu_torch.parallel import cell_mesh, shard_state, sharded_step
+from compose_tpu_torch.tools import profile_step, qlt_perftest, run_battery
+assert len(battery.ROWS) == 53
+res = qlt_perftest.run(24, 1, 1, 2, "cpu")
+assert res["bitwise"]
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "compose_tpu")]
 assert not bad, bad
@@ -58,7 +64,8 @@ print("STANDALONE_OK")
 
 def test_standalone_step_without_jax():
     # A fresh interpreter: import the port and its output, checkpoint and
-    # Islet-tool modules, run one ne2 step on the CPU and the command line.
+    # Islet-tool modules, run one ne2 step on the CPU and the command line,
+    # import the DTensor step and the entry points, run the QLT perf test.
     res = subprocess.run([sys.executable, "-c", _STANDALONE],
                          capture_output=True, text=True, timeout=300,
                          cwd=PKG.parent)
