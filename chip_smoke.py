@@ -104,6 +104,18 @@ rank refused or died in is printed instead), over 8 gloo ranks on the
 CPU (its collectives at ne30), and with 2 or more cards one NCCL rank
 per card. The kernels' JSON adds `launches_gspmd`, the launches of the
 world-size-1 run.
+Then the single-device entry step, the multi-device dry run and the
+comm-volume accounting (phase_dryrun, compose_tpu_torch/tools/dryrun.py,
+the port of the repo root's entry module): entry()'s ne6 step on the
+card twice (bitwise) against the CPU (1e-12), K2 1 and K3 2 per call;
+dryrun_multichip(8) over LocalComm (strips and tiles bitwise, dryrun_ir,
+K1 1, K2 26, K3 44 in all; its single-device steps against the CPU,
+1e-12); every byte of its accounting at ne30, the measured-footprint leg
+(timed) included, equal to MULTICHIP_comm.json (the JAX package's output
+at 8 devices). With 2 or
+more cards the NCCL leg also runs dryrun_multichip over DistComm. The
+kernels' JSON adds `launches_dryrun` (per entry() call, and in the dry
+run).
 The last two lines are the kernels' JSON summary and the device JSON.
 """
 
@@ -1044,9 +1056,12 @@ def _ref_states(step, rho, q, times):
 
 def _nccl_rank(rank, world, port, ne, nsteps):
     """One rank of the NCCL leg: the flagship over `world` cards with
-    DistComm, against the single-device step on rank 0's card."""
+    DistComm, against the single-device step on rank 0's card; then the
+    multi-device dry run (tools.dryrun.dryrun_multichip) over the same
+    ranks."""
     import torch.distributed as dist
     from compose_tpu_torch.parallel import DistComm, ShardedIsl
+    from compose_tpu_torch.tools import dryrun
 
     torch.cuda.set_device(rank)
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
@@ -1065,6 +1080,8 @@ def _nccl_rank(rank, world, port, ne, nsteps):
         if not (torch.equal(rho, ref[0]) and torch.equal(q, ref[1])):
             raise AssertionError(f"NCCL leg: rank {rank} differs from the "
                                  "single-device step")
+        # The multi-device dry run with every rank on the global state.
+        dryrun.dryrun_multichip(world, comm=DistComm(dev))
     finally:
         dist.destroy_process_group()
 
@@ -1167,7 +1184,8 @@ def phase_sharded(dev, stats):
                                     args=(world, _free_port(), 30, 2),
                                     nprocs=world, join=True)
         log(f"NCCL leg: the flagship over {world} cards with DistComm, 2 "
-            f"steps, bitwise equal to the single-device step")
+            f"steps, bitwise equal to the single-device step; "
+            f"dryrun_multichip({world}) over DistComm bitwise on every rank")
     else:
         log(f"NCCL leg not run: it needs 2 or more CUDA devices, and this "
             f"machine has {ndev}")
@@ -1432,6 +1450,113 @@ def phase_entry_points(dev):
             f"devices, and this machine has {ndev}")
     log(f"entry points phase: {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def phase_dryrun(dev):
+    """The single-device entry step, the multi-device dry run and the
+    comm-volume accounting (compose_tpu_torch.tools.dryrun, the port of
+    the repo root's entry module): entry()'s step on the card, called
+    twice (bitwise), against the same step on the CPU (1e-12), K2 once and
+    K3 twice per call; dryrun_multichip(8) over LocalComm on the card:
+    strips and tiles bitwise, dryrun_ir's two legs within their bars, and
+    every byte of the accounting at ne30, the measured-footprint leg
+    (timed) included, equal to MULTICHIP_comm.json, the JAX package's
+    output of the same function at 8 devices; then the dry run's
+    single-device steps (ISL and both IR configs) against the CPU
+    (1e-12). Returns each kernel's launches: per entry() call, and in the
+    dry run."""
+    import pathlib
+
+    from compose_tpu_torch import _native
+    from compose_tpu_torch.parallel.sharded_ir import dryrun_ir_models
+    from compose_tpu_torch.tools import dryrun
+
+    t0 = time.perf_counter()
+    fn, (rho, q) = dryrun.entry()
+    for k in _native.KERNELS.values():
+        k.launches = 0
+    secs, outs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        outs.append(fn(rho, q))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - w0)
+    got = {n: k.launches for n, k in _native.KERNELS.items()}
+    want = {n: {"limit_caas_f64": 1, "dss_q_f64": 2}.get(n, 0)
+            for n in KERNELS}
+    if got != {n: 2 * c for n, c in want.items()}:
+        raise AssertionError(f"entry(): launches over two calls {got}")
+    per_call = {n: c // 2 for n, c in got.items()}
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        raise AssertionError("entry(): two calls differ")
+    fn_cpu, _ = dryrun.entry(device="cpu")
+    ref = fn_cpu(rho.cpu(), q.cpu())
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(outs[0], ref))
+    log(f"entry() (ne6 np4, 4 tracers, qlt/caas, nsub 2): first call "
+        f"{secs[0] * 1e3:.2f} ms, second {secs[1] * 1e3:.2f} ms (host clock, "
+        f"synchronized), the two bitwise equal; max |card - cpu| = "
+        f"{err:.3e} (tolerance 1e-12); launches per call "
+        + " ".join(f"{n} {c}" for n, c in per_call.items() if c))
+    if not err <= 1e-12:
+        raise AssertionError(f"entry(): the card differs from the CPU: {err}")
+
+    for k in _native.KERNELS.values():
+        k.launches = 0
+    w0 = time.perf_counter()
+    report = {}
+    acct = dryrun.dryrun_multichip(8, dev, report=report)
+    sec = time.perf_counter() - w0
+    multi = {n: k.launches for n, k in _native.KERNELS.items()}
+    # K2/K3: strips 8/16, the single-device reference 1/2, tiles 8/16;
+    # dryrun_ir's single-device caas step K1 1, K2 1, K3 2 and its sharded
+    # step 8/8.
+    want = {"glbl_caas_f64": 1, "limit_caas_f64": 26, "dss_q_f64": 44}
+    if multi != {n: want.get(n, 0) for n in KERNELS}:
+        raise AssertionError(f"dry run: launches {multi}")
+    diffs = report["max_diff"]
+    log(f"dryrun_multichip(8) over LocalComm on the card: strips "
+        f"{diffs['strips']:.1e} and tiles {diffs['tiles']:.1e} from the "
+        f"single-device step (bitwise); dryrun_ir projection "
+        f"{diffs['ir'][0]:.3e}, full step {diffs['ir'][1]:.3e} (bars 0 and "
+        f"2 ulp); {sec:.2f} s with the accounting; launches "
+        + " ".join(f"{n} {c}" for n, c in multi.items() if c))
+    # The dry run holds its sharded steps to the card's single-device
+    # steps; these hold those steps (K1-K3 at the dry run's shapes) to the
+    # same steps on the CPU, where the wrappers run their plain versions.
+    res = {}
+    for d in (dev, "cpu"):
+        model, _, rho, q = dryrun.make_model(4, 3, d)
+        rho_ir, q_ir, dt_ir, ir_models = dryrun_ir_models(d)
+        res[str(d)] = [model.step(rho, q, 0.0, dryrun.DT)] + [
+            m.step(rho_ir, q_ir, 0.0, dt_ir) for _, m in ir_models]
+    err = max(float((a.cpu() - b).abs().max())
+              for g, c in zip(res[str(dev)], res["cpu"])
+              for a, b in zip(g, c))
+    log(f"dry run's single-device steps (ne4 isl qlt/caas; ir projection; "
+        f"ir caas/caas d2c): max |card - cpu| = {err:.3e} (tolerance "
+        f"1e-12)")
+    if not err <= 1e-12:
+        raise AssertionError(f"dry run: the card differs from the CPU: {err}")
+    artifact = json.loads((pathlib.Path(__file__).resolve().parent
+                           / "MULTICHIP_comm.json").read_text())
+    if set(acct) != set(artifact):
+        raise AssertionError(f"accounting keys {sorted(acct)}")
+    bad = [(k, name, acct[k][name], v) for k, row in artifact.items()
+           for name, v in row.items()
+           if name.endswith("_bytes") and acct[k][name] != v]
+    if bad:
+        raise AssertionError(f"accounting differs from MULTICHIP_comm.json: "
+                             f"{bad}")
+    log("comm accounting (ne4 nt3 and ne30 nt40, 8 shards; strips, tiles "
+        "ring 2, tiles with the measured footprint): every *_bytes value "
+        "equals MULTICHIP_comm.json; received per shard and step "
+        + ", ".join(f"{k} {acct[k]['total_bytes']}" for k in artifact))
+    log(f"measured-footprint leg (120 ne30 departure integrations, nsub 2, "
+        f"f32 geometry, and the need sets): {report['measured_leg_s']:.2f} "
+        f"s on the card")
+    log(f"dry-run phase: {time.perf_counter() - t0:.1f} s")
+    return {"entry": per_call, "dryrun_multichip": multi}
 
 
 def phase_cli(dev):
@@ -1708,6 +1833,7 @@ def main():
     prec_launches = phase_precision_paths(dev)
     sharded_launches = phase_sharded(dev, stats)
     gspmd_launches = phase_entry_points(dev)
+    dryrun_launches = phase_dryrun(dev)
     phase_cli(dev)
     phase_golden(dev)
 
@@ -1720,6 +1846,7 @@ def main():
              launches_precision={p: c[n] for p, c in prec_launches.items()},
              launches_sharded=sharded_launches[n],
              launches_gspmd=gspmd_launches[n],
+             launches_dryrun={p: c[n] for p, c in dryrun_launches.items()},
              **{k: stats[n][k] for k in keys})
         for n, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -222,6 +222,19 @@ class _Sharded:
         return out
 
 
+def measured_need(model, owner, n_shards: int, step_times,
+                  margin_rings: int = 0, base_rings: int = 1):
+    """Per-shard remote cells of `model`'s measured departure footprint:
+    the departure cells of its (ts, tf) windows `step_times` under the
+    cell -> shard map `owner`, united with the ring-`base_rings`
+    neighbourhood (halo.measured_need_sets)."""
+    m = model.mesh
+    ci_list = [model._departure_data(t0, t1)[1].cpu().numpy()
+               for (t0, t1) in step_times]
+    return measured_need_sets(m, owner, ci_list, model.d2c_map.cpu().numpy(),
+                              m.np2, margin_rings, n_shards, base_rings)
+
+
 class ShardedIsl(_Sharded):
     """Cell-sharded IslTransport step.
 
@@ -241,17 +254,14 @@ class ShardedIsl(_Sharded):
                            base_rings: int = 1, **kw):
         """A ShardedIsl whose halo is the measured footprint of the run's
         (ts, tf) windows `step_times` united with the ring-`base_rings`
-        neighbourhood (halo.measured_need_sets); coverage_ok still guards
+        neighbourhood (measured_need); coverage_ok still guards
         every step size."""
         m = model.mesh
         if owner is None:
             B = -(-m.ncell // n_shards)
             owner = np.arange(m.ncell) // B
-        ci_list = [model._departure_data(t0, t1)[1].cpu().numpy()
-                   for (t0, t1) in step_times]
-        need = measured_need_sets(m, owner, ci_list,
-                                  model.d2c_map.cpu().numpy(), m.np2,
-                                  margin_rings, n_shards, base_rings)
+        need = measured_need(model, owner, n_shards, step_times,
+                             margin_rings, base_rings)
         return cls(model, n_shards, owner=owner, need_sets=need, **kw)
 
     def __init__(self, model, n_shards: int, depth: int = 2, comm=None,

@@ -233,13 +233,12 @@ class ShardedIr(_Sharded):
         return rho_out, Q_out / torch.where(rho_out == 0, 1.0, rho_out)[None]
 
 
-def dryrun_ir(n_shards: int, device="cuda", ne: int = 4):
-    """One sharded IR step of each of two configs against the
-    single-device IrTransport step (the JAX package's dryrun_ir): the
-    projection alone (ir, dmc es, no filter, no d2c) bitwise, and the full
-    step with CDR and DSS (ir, dmc es, caas/caas, d2c) within 2 ulp (the
-    JAX package's bar; the port's is bitwise in its tests). Raises on a
-    miss; returns the two legs' largest differences."""
+def dryrun_ir_models(device="cuda", ne: int = 4):
+    """dryrun_ir's inputs on `device`: (rho, q, dt, [(bar, model)]) with
+    rho 1, two tracers, a step of 86400/10 s and its two single-device
+    IrTransport configs (ir, dmc es, divergent wind): the projection alone
+    (no filter, no d2c; bar 0) and the full step with CDR and DSS
+    (caas/caas, d2c; bar 2 ulp, the JAX package's)."""
     from .. import driver
     from ..transport import gallery
     from ..transport.ir import IrConfig, IrTransport
@@ -249,19 +248,32 @@ def dryrun_ir(n_shards: int, device="cuda", ne: int = 4):
     rho = torch.ones((mesh.ncell, mesh.np2), dtype=mesh.dtype,
                      device=mesh.device)
     q = driver.init_tracers(mesh, ("gaussianhills", "cosinebells"))
-    dt = 86400.0 / 10
     eps = float(torch.finfo(mesh.dtype).eps)
+    models = [(bar, IrTransport(mesh, wind, IrConfig(
+        ne=ne, np_=4, method="ir", dmc="es", nsub=2, **cfg)))
+        for bar, cfg in ((0.0, dict(filter="none", limiter="none",
+                                    d2c=False)),
+                         (2 * eps, dict(filter="caas", limiter="caas",
+                                        d2c=True)))]
+    return rho, q, 86400.0 / 10, models
+
+
+def dryrun_ir(n_shards: int, device="cuda", ne: int = 4, comm=None):
+    """One sharded IR step of each of dryrun_ir_models' two configs
+    against the single-device IrTransport step (the JAX package's
+    dryrun_ir): the projection alone bitwise, and the full step with CDR
+    and DSS within 2 ulp (the JAX package's bar; the port's is bitwise in
+    its tests). `comm`: a LocalComm on `device` (default) or a DistComm of
+    n_shards ranks. Raises on a miss; returns the two legs' largest
+    differences."""
+    rho, q, dt, models = dryrun_ir_models(device, ne)
     diffs = []
-    for bar, cfg in ((0.0, dict(filter="none", limiter="none", d2c=False)),
-                     (2 * eps, dict(filter="caas", limiter="caas",
-                                    d2c=True))):
-        model = IrTransport(mesh, wind, IrConfig(
-            ne=ne, np_=4, method="ir", dmc="es", nsub=2, **cfg))
+    for bar, model in models:
         ref = model.step(rho, q, 0.0, dt)
-        out = ShardedIr(model, n_shards).step(rho, q, 0.0, dt)
+        out = ShardedIr(model, n_shards, comm=comm).step(rho, q, 0.0, dt)
         d = max(float((a - b).abs().max()) for a, b in zip(out, ref))
         if d > bar:
-            raise AssertionError(f"sharded IR ({cfg}): {d} from the "
-                                 f"single-device step (bar {bar})")
+            raise AssertionError(f"sharded IR ({model.config}): {d} from "
+                                 f"the single-device step (bar {bar})")
         diffs.append(d)
     return diffs

@@ -500,3 +500,43 @@ def test_dtensor_step_card(dev, one_rank):
             got["dss_q_f64"]) == (2, 1, 2)
     for a, b in zip(out, ref):
         assert float((a.full_tensor() - b).abs().max()) < 1e-13
+
+
+# ---------------------------------------------------------------------------
+# The entry step and the multi-device dry run (tools/dryrun.py) on the card.
+
+def test_entry_step_card(dev):
+    # entry()'s step on the card (its default device) against the same
+    # step on the CPU; K2 once and K3 twice per call, K1 never.
+    from compose_tpu_torch.tools import dryrun
+
+    fn, (rho, q) = dryrun.entry()
+    assert rho.device == dev
+    before = {n: k.launches for n, k in _native.KERNELS.items()}
+    out = fn(rho, q)
+    got = {n: k.launches - before[n] for n, k in _native.KERNELS.items()}
+    assert got == {n: {"limit_caas_f64": 1, "dss_q_f64": 2}.get(n, 0)
+                   for n in _native.KERNELS}
+    fn_cpu, _ = dryrun.entry(device="cpu")
+    ref = fn_cpu(rho.cpu(), q.cpu())
+    for a, b in zip(out, ref):
+        assert float((a.cpu() - b).abs().max()) <= 1e-12
+
+
+def test_dryrun_multichip_card(dev):
+    # dryrun_multichip(8) over LocalComm on the card: bitwise in strips and
+    # tiles (it raises otherwise), and every byte of the accounting, the
+    # measured leg included, equal to the JAX package's committed output.
+    import json
+    import pathlib
+
+    from compose_tpu_torch.tools import dryrun
+
+    acct = dryrun.dryrun_multichip(8)
+    root = pathlib.Path(__file__).resolve().parents[1]
+    want = json.loads((root / "MULTICHIP_comm.json").read_text())
+    assert set(acct) == set(want)
+    for k, row in want.items():
+        for name, v in row.items():
+            if name.endswith("_bytes"):
+                assert acct[k][name] == v, (k, name)

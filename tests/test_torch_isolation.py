@@ -13,6 +13,7 @@ import torch
 
 from compose_tpu_torch import _native, config, driver
 from compose_tpu_torch.mesh import cubed_sphere
+from compose_tpu_torch.tools import dryrun
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "compose_tpu_torch"
 
@@ -53,8 +54,13 @@ from compose_tpu_torch.tools import profile_step, qlt_perftest, run_battery
 assert len(battery.ROWS) == 53
 res = qlt_perftest.run(24, 1, 1, 2, "cpu")
 assert res["bitwise"]
+from compose_tpu_torch.tools import dryrun
+fn, (rho, q) = dryrun.entry(device="cpu")
+rho, q = fn(rho, q)
+assert bool(torch.isfinite(q).all()) and q.shape == (4, 216, 16)
 bad = [m for m in sys.modules
-       if m.split(".")[0] in ("jax", "jaxlib", "compose_tpu")]
+       if m.split(".")[0] in ("jax", "jaxlib", "compose_tpu",
+                               "__graft_entry__")]
 assert not bad, bad
 assert _native.lib.cache_info().currsize == 0, "kernels were built"
 assert all(k.launches == 0 for k in _native.KERNELS.values())
@@ -65,7 +71,8 @@ print("STANDALONE_OK")
 def test_standalone_step_without_jax():
     # A fresh interpreter: import the port and its output, checkpoint and
     # Islet-tool modules, run one ne2 step on the CPU and the command line,
-    # import the DTensor step and the entry points, run the QLT perf test.
+    # import the DTensor step and the entry points, run the QLT perf test
+    # and the entry step.
     res = subprocess.run([sys.executable, "-c", _STANDALONE],
                          capture_output=True, text=True, timeout=300,
                          cwd=PKG.parent)
@@ -74,9 +81,14 @@ def test_standalone_step_without_jax():
 
 
 def test_sources_import_no_jax():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|compose_tpu)\b", re.M)
-    offenders = [str(p) for p in PKG.rglob("*.py")
-                 if pat.search(p.read_text())]
+    # The package and chip_smoke.py import neither JAX, the JAX package nor
+    # the repo root's entry module (by statement or by importlib).
+    mods = r"(jax|jaxlib|compose_tpu|__graft_entry__)\b"
+    pat = re.compile(rf"^\s*(import|from)\s+{mods}", re.M)
+    dyn = re.compile(rf"(import_module|__import__)\(\s*[\"']{mods}")
+    files = list(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
+    offenders = [str(p) for p in files
+                 if pat.search(p.read_text()) or dyn.search(p.read_text())]
     assert not offenders
     cu = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
     assert cu == ["dss_q.cu", "glbl_caas.cu", "limit_caas.cu"]
@@ -97,6 +109,10 @@ def test_cuda_device_raises_without_cuda(monkeypatch):
         cubed_sphere.build(2, 4)
     with pytest.raises(RuntimeError):
         driver.run(ne=2, nsteps=1, verbose=False)
+    with pytest.raises(RuntimeError):
+        dryrun.entry()
+    with pytest.raises(RuntimeError):
+        dryrun.dryrun_multichip(2)
     assert config.resolve_device("cpu") == torch.device("cpu")
 
 
