@@ -1650,11 +1650,19 @@ def phase_cli(dev):
 
 
 def _log_phases(label, model, rho, q):
-    """Where one step's time goes: IslTransport.phase_times, each phase
-    run alone 5 times (so the phases need not add up to the step)."""
-    pt = model.phase_times(rho, q, 0.0, 8640.0, iters=5)
-    log(f"{label} phases (ms): " + ", ".join(
-        f"{k} {v * 1e3:.3f}" for k, v in pt.items()))
+    """Where one step's time goes: the program's spans (trace.py) over 5
+    steps, host ms per step of each."""
+    from compose_tpu_torch import trace
+    trace.enable()
+    trace.reset()
+    for _ in range(5):
+        model.step(rho, q, 0.0, 8640.0)
+    torch.cuda.synchronize()
+    trace.disable()
+    spans = trace.summary()["spans"]
+    n = spans["isl.step"]["count"]
+    log(f"{label} spans (host ms/step): " + ", ".join(
+        f"{k} {d['s'] / n * 1e3:.3f}" for k, d in sorted(spans.items())))
 
 
 def row_ok(out, bars):

@@ -16,6 +16,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import trace
 from ..ops.reduce import bfb_sum, next_pow2
 
 
@@ -230,8 +231,11 @@ class BfbTreeAllReducer:
     def allreduce(self, x_block, comm):
         """The global tree sum over the last axis of the block this shard
         (comm.rank) holds, bitwise equal to bfb_sum of the global array."""
-        part = self.local_partials(x_block, comm.rank)
-        return self.complete(comm.all_gather(part, dim=part.dim() - 1))
+        with trace.span("comm.bfb") as sp:
+            part = self.local_partials(x_block, comm.rank)
+            if trace.active:
+                sp.add(trace.gather_bytes(comm, part))
+            return self.complete(comm.all_gather(part, dim=part.dim() - 1))
 
 
 @functools.lru_cache(maxsize=None)

@@ -22,6 +22,7 @@ exactly); each shard runs only its own rows, without their padding.
 import numpy as np
 import torch
 
+from .. import trace
 from . import tree as tree_mod
 from .qlt import (CONSERVE, CONSISTENT, NONNEGATIVE, SHAPEPRESERVE,
                   solve_node_problem)
@@ -261,7 +262,10 @@ class ShardedQLT:
             + ([W_prev] if conserve else [])
         f = torch.stack([c[:, fidx] for c in ch])             # (C, nt, nf)
         f = torch.nn.functional.pad(f, (0, self.max_nf - f.shape[-1]))
-        g = comm.all_gather(f.contiguous(), dim=2)            # (C, nt, ns, nf)
+        with trace.span("comm.bfb") as sp:
+            g = comm.all_gather(f.contiguous(), dim=2)        # (C, nt, ns, nf)
+            if trace.active:
+                sp.add(trace.gather_bytes(comm, f))
         g = g.reshape(g.shape[0], nt, -1)
         TS = self.top_size
         T_rho = space(g[0, 0], TS)

@@ -43,7 +43,7 @@ import time
 import numpy as np
 import torch
 
-from . import constants, io, vis
+from . import constants, io, trace, vis
 from .config import F64, real_dtype, resolve_device
 from .diagnostics import LauritzenDiag, Observer
 from .mesh import cubed_sphere
@@ -272,8 +272,10 @@ def run(ne=10, np_=4, nsteps=12, T_days=12.0, ics=("gaussianhills",),
     `lauritzen` prints the Lauritzen diagnostics of day 6;
     `observer_out` dumps the observer's series there as JSON;
     `check_midpoint` prints the midpoint check (an even nsteps);
-    `footprint` and `timers` print the ISL footprint per step and the
-    per-phase times; `io_type` netcdf | internal writes the fields every
+    `footprint` and `timers` print the ISL footprint per step and, from
+    the program's spans (trace.py) over the run's steps, each phase's
+    host seconds per step and share of the step; `io_type` netcdf |
+    internal writes the fields every
     `write_every` steps to out_prefix.nc or out_prefix.bin (a vis_res x
     2 vis_res raster)."""
     if method not in ("pisl", "pislu", "ir", "cdg", "isl"):
@@ -389,6 +391,9 @@ def run(ne=10, np_=4, nsteps=12, T_days=12.0, ics=("gaussianhills",),
     max_step_mass_err = 0.0
     max_step_bounds_err = 0.0
     pref_state = None
+    if timers:
+        trace.enable()
+        trace.reset()
     t_start = time.time()
     for step in range(nsteps):
         ts = dt * step
@@ -436,12 +441,10 @@ def run(ne=10, np_=4, nsteps=12, T_days=12.0, ics=("gaussianhills",),
             _midpoint_check(mesh, wind, ne, np_, nsub, nsteps, T, rho0, q0,
                             q, verbose)
     et = (time.time() - t_start) / nsteps
-    if timers and isinstance(model, IslTransport):
-        pt = model.phase_times(rho, q, 0.0, dt)
-        tot = pt.get("full step", 1.0)
-        for name, sec in pt.items():
-            print(f"T {name:<24s} {sec:9.3e} s/step "
-                  f"{100 * sec / tot:5.1f}%")
+    if timers:
+        trace.disable()
+        for line in trace.step_table():
+            print("T " + line)
     if output is not None:
         output.close()
     if obs is not None:
@@ -510,7 +513,8 @@ def main(argv=None):
     p.add_argument("-footprint", action="store_true",
                    help="print the ISL communication footprint per step")
     p.add_argument("-timers", action="store_true",
-                   help="print the per-phase step-time breakdown")
+                   help="print each phase's host seconds per step, "
+                   "from the program's spans over the run's steps")
     p.add_argument("-io-type", dest="io_type", default=None,
                    choices=["netcdf", "internal"])
     p.add_argument("-o", dest="out_prefix", default="slmmir_out")

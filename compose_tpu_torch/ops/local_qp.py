@@ -10,6 +10,7 @@ solve_1eq_bc_qp (Newton on the multiplier) and solve_1eq_nonneg.
 
 import torch
 
+from .. import trace
 from .reduce import bfb_sum
 
 _EPS = 2.220446049250313e-16
@@ -141,9 +142,11 @@ def solve_1eq_bc_qp(w, a, b, xlo, xhi, y, max_its: int = 50):
     done = corner_done | y_done
     x_newton = y.clone()
     prev_bisect = torch.zeros_like(done)
+    trace.count("qp.calls")
     for _ in range(max_its):
         if bool(torch.all(done)):
             break
+        trace.count("qp.newton_iters")
         x_trial = y + lam[..., None] * q
         inside = (x_trial >= xlo) & (x_trial <= xhi)
         x_it = _clip(x_trial, xlo, xhi)

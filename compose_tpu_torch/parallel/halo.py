@@ -15,6 +15,7 @@ local. The integer tables are built in numpy and equal the JAX package's.
 import numpy as np
 import torch
 
+from .. import trace
 from ..mesh.cubed_sphere import _face_key
 
 
@@ -348,9 +349,12 @@ def halo_exchange(comm, st, send_tabs, perms):
     bitwise those of any other layout. send_tabs: per-delta index tensors
     (n_shards, size_d)."""
     parts = [st]
-    for tab, perm in zip(send_tabs, perms):
-        parts.append(comm.ppermute(st[:, tab[comm.rank], :].contiguous(),
-                                   perm))
+    with trace.span("comm.halo") as sp:
+        for tab, perm in zip(send_tabs, perms):
+            x = st[:, tab[comm.rank], :].contiguous()
+            parts.append(comm.ppermute(x, perm))
+            if trace.active:
+                sp.add(trace.recv_bytes(comm, x, perm))
     return torch.cat(parts, dim=1)
 
 

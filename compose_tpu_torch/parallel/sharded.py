@@ -31,6 +31,7 @@ shard, and the global CAAS sums through the BFB allreduce instead
 import numpy as np
 import torch
 
+from .. import trace
 from ..cdr import qlt as qlt_mod
 from ..cdr.bfb import BfbTreeAllReducer, get_reducer
 from ..cdr.qlt_sharded import ShardedQLT
@@ -53,8 +54,12 @@ def _slot_exchange(comm, st, tabs, perms):
     """Slot-level DSS exchange: st (C, B*np2) -> (C, B*np2 + H), the
     shard's slots followed by the foreign coincident slots it reads."""
     parts = [st]
-    for tab, perm in zip(tabs, perms):
-        parts.append(comm.ppermute(st[:, tab[comm.rank]].contiguous(), perm))
+    with trace.span("comm.dss_slots") as sp:
+        for tab, perm in zip(tabs, perms):
+            x = st[:, tab[comm.rank]].contiguous()
+            parts.append(comm.ppermute(x, perm))
+            if trace.active:
+                sp.add(trace.recv_bytes(comm, x, perm))
     return torch.cat(parts, dim=1)
 
 
@@ -322,7 +327,10 @@ class ShardedIsl(_Sharded):
                               device=Q_mass.device)
 
         def gath(v):
-            g = c.all_gather(v, dim=v.dim() - 1)
+            with trace.span("comm.bfb") as sp:
+                g = c.all_gather(v, dim=v.dim() - 1)
+                if trace.active:
+                    sp.add(trace.gather_bytes(c, v))
             return g.reshape(v.shape[:-1] + (-1,))[..., inv]
 
         x = spf.run_mn2(gath(Q_min), gath(Q_mass), gath(Q_max), extra)
@@ -375,14 +383,22 @@ class ShardedIsl(_Sharded):
 
     def _body(self, c, rho, q, ts, tf):
         t = self.shards[c.rank]
-        rho_tgt, q_tgt, node_src, q_ext = self._interp(c, t, rho, q, ts, tf)
-        rho_tgt = self._rho_cdr(c, t, rho, rho_tgt)
-        q_new = self._tracer_cdr(c, t, rho, q, rho_tgt, q_tgt, node_src,
-                                 q_ext)
-        nt = q.shape[0]
-        st = torch.cat([rho_tgt.reshape(1, -1), q_new.reshape(nt, -1)])
-        return rho_tgt, self._dss(c, t, st, weighted=True).reshape(
-            q_new.shape)
+        with trace.span("isl.step"):
+            with trace.span("isl.interp"):
+                rho_tgt, q_tgt, node_src, q_ext = self._interp(c, t, rho, q,
+                                                               ts, tf)
+            with trace.span("isl.rho_cdr"):
+                rho_tgt = self._rho_cdr(c, t, rho, rho_tgt)
+            with trace.span("isl.tracer_cdr"):
+                q_new = self._tracer_cdr(c, t, rho, q, rho_tgt, q_tgt,
+                                         node_src, q_ext)
+            with trace.span("isl.dss"):
+                nt = q.shape[0]
+                st = torch.cat([rho_tgt.reshape(1, -1),
+                                q_new.reshape(nt, -1)])
+                q_new = self._dss(c, t, st, weighted=True).reshape(
+                    q_new.shape)
+        return rho_tgt, q_new
 
     def _rho_cdr(self, c, t, rho, rho_tgt):
         """IslTransport._rho_cdr on the shard's block."""

@@ -5,9 +5,10 @@ tools/profile_step.py, with tools/profile_step2.py's finer CDR split under
 Rows: the trajectories (nsub 8), cell location, sphere_to_ref, all of the
 departure data, the interpolation of the tracers, the departure Jacobian,
 the full step, the step with no filter or limiter, and the step at one
-tracer; then IslTransport.phase_times (tools/prof_phases.py's table).
-Each row is the median of 20 calls (10 for the steps) after a warm-up,
-each call timed by CUDA events on a card (the host clock on the CPU).
+tracer; then the program's spans (trace.py) over the FULL STEP row's
+calls: each phase's host seconds per step and share of the step. Each
+row is the median of 20 calls (10 for the steps) after a warm-up, each
+call timed by CUDA events on a card (the host clock on the CPU).
 The configuration is the JAX tool's: ne30 np4, 40 tracers, pisl
 caas/caas, rho_isl, nsub 8, f32 geometry.
 
@@ -22,7 +23,7 @@ import time
 
 import torch
 
-from .. import driver
+from .. import driver, trace
 from ..config import F64, resolve_device
 from ..mesh import cubed_sphere
 from ..ops import sqr
@@ -86,16 +87,22 @@ def profile(ne=30, nt=40, device="cuda", fine=False):
                        lambda: model._departure_data(0.0, dt))
     row(f"interp {nt} tracers", lambda: model._interp(q, ci_, w))
     row("jacobian_departure", lambda: model._jacobian_departure(dep_))
+    trace.enable()
+    trace.reset()
     row("FULL STEP", lambda: model.step(rho, q, 0.0, dt), n=10)
+    trace.disable()
+    summ = trace.summary()
     bare = IslTransport(mesh, wind, IslConfig(filter="none", limiter="none",
                                               **cfg))
     row("step w/o CDR", lambda: bare.step(rho, q, 0.0, dt), n=10)
     row("step nt=1", lambda: model.step(rho, q[:1], 0.0, dt), n=10)
     if fine:
         _fine_rows(model, rho, q, dt, row)
-    for k, v in model.phase_times(rho, q, 0.0, dt).items():
-        res[f"phase {k}"] = v * 1e3
-        print(f"phase {k:22s} {v * 1e3:8.3f} ms (phase_times)")
+    nstep = summ["spans"]["isl.step"]["count"]
+    for k, d in summ["spans"].items():
+        res[f"span {k}"] = d["s"] / nstep * 1e3
+    for line in trace.step_table(summ):
+        print(f"span {line}")
     return res
 
 

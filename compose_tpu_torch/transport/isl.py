@@ -40,12 +40,11 @@ the mesh's dtype on its device.
 """
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
 
-from .. import basis as basis_mod
+from .. import basis as basis_mod, trace
 from ..config import F32
 from ..mesh import cubed_sphere
 from ..ops import local_qp, sphere, sqr
@@ -160,6 +159,15 @@ class IslTransport:
     def _departure_data(self, ts, tf, nodes=None):
         """(dep, ci, w) of the CGLL nodes, or of the node ids `nodes` only
         (a shard's): each node's arithmetic is the same either way."""
+        with trace.span("isl.departure"):
+            with trace.span("isl.departure.trajectory"):
+                dep = self._departure_points(ts, tf, nodes)
+            with trace.span("isl.departure.locate"):
+                ci, w = self._locate(dep)
+        return dep, ci, w
+
+    def _departure_points(self, ts, tf, nodes):
+        """The departure points of `_departure_data`'s nodes."""
         m, cfg = self.mesh, self.config
         f32 = cfg.geom_dtype == "f32"
         if self.vmesh is not None:
@@ -174,18 +182,22 @@ class IslTransport:
                                       cfg.timeint == "interpline")
             dep = timeint.interp_departure(vw.to(vdep.dtype),
                                            vdep[vm.dgll2cgll][voc])
-            dep = sphere.normalize(dep)
-        else:
-            xyz = m.cgll_xyz if nodes is None else m.cgll_xyz[nodes]
-            dep = self._trajectories(xyz.to(F32) if f32 else xyz, ts, tf,
-                                     cfg.timeint == "line")
+            return sphere.normalize(dep)
+        xyz = m.cgll_xyz if nodes is None else m.cgll_xyz[nodes]
+        return self._trajectories(xyz.to(F32) if f32 else xyz, ts, tf,
+                                  cfg.timeint == "line")
+
+    def _locate(self, dep):
+        """Each departure point's cell (cell location, then the Newton
+        inverse to reference coordinates) and its basis weights."""
+        m, cfg = self.mesh, self.config
         if m.nonuni:
             # The nonuniform mesh's locate converges the Newton itself.
             ci, a, b = cubed_sphere.locate(m, dep)
         else:
             ci, a0, b0 = cubed_sphere.locate(m, dep)
             corners = m.corners[ci]
-            if f32:
+            if cfg.geom_dtype == "f32":
                 corners = corners.to(F32)
                 tol = 1e1 * float(torch.finfo(F32).eps)
                 a, b = sqr.sphere_to_ref(corners, dep, max_its=3, tol=tol,
@@ -198,7 +210,7 @@ class IslTransport:
         w = (vb[:, :, None] * va[:, None, :]).reshape(-1, m.np2)
         # f32 weights widen to the working type; dep stays f32 (the
         # departure Jacobian runs in f32 and its ratio is widened).
-        return dep, ci, w.to(self.real)
+        return ci, w.to(self.real)
 
     def _interp(self, field, ci, w):
         """field (..., ncell, np2) -> (..., cnn) at the departure points.
@@ -420,16 +432,23 @@ class IslTransport:
 
     def _step_impl(self, rho, q, ts, tf, rho_tgt_ext=None):
         cfg = self.config
-        dep, ci, w = self._departure_data(ts, tf)
-        rho_tgt, q_tgt, node_src_cell = self._interp_phase(rho, q, dep, ci, w)
-        if rho_tgt_ext is not None:
-            rho_tgt = rho_tgt_ext
-        rho_tgt = self._rho_cdr(rho, rho_tgt)
-        q_new = self._tracer_cdr(rho, q, rho_tgt, q_tgt, node_src_cell)
-        if (rho_tgt_ext is not None and not cfg.positive_only
-                and cfg.filter not in ("none", "caas-node")):
-            return self._mixed_dss(rho_tgt, q_new)
-        return rho_tgt, self._dss_q(rho_tgt, q_new)
+        with trace.span("isl.step"):
+            dep, ci, w = self._departure_data(ts, tf)
+            with trace.span("isl.interp"):
+                rho_tgt, q_tgt, node_src_cell = self._interp_phase(
+                    rho, q, dep, ci, w)
+            if rho_tgt_ext is not None:
+                rho_tgt = rho_tgt_ext
+            with trace.span("isl.rho_cdr"):
+                rho_tgt = self._rho_cdr(rho, rho_tgt)
+            with trace.span("isl.tracer_cdr"):
+                q_new = self._tracer_cdr(rho, q, rho_tgt, q_tgt,
+                                         node_src_cell)
+            with trace.span("isl.dss"):
+                if (rho_tgt_ext is not None and not cfg.positive_only
+                        and cfg.filter not in ("none", "caas-node")):
+                    return self._mixed_dss(rho_tgt, q_new)
+                return rho_tgt, self._dss_q(rho_tgt, q_new)
 
     def footprint_stats(self, ts, tf):
         """The ISL communication footprint of the step ts -> tf: per target
@@ -446,33 +465,3 @@ class IslTransport:
         nout = out.sum(axis=1) + 2 * nuniq
         med = np.partition(nout, len(nout) // 2)[len(nout) // 2]
         return int(nout.min()), int(med), float(nout.mean()), int(nout.max())
-
-    def phase_times(self, rho, q, ts, tf, iters: int = 10):
-        """Per-phase wall times of one step (compose_tpu's phase_times):
-        each phase runs alone `iters` times after a warm-up, synchronized
-        on CUDA. Returns an ordered {phase: seconds} dict; "other" is the
-        full step less the phases."""
-        sync = (torch.cuda.synchronize if self.mesh.device.type == "cuda"
-                else (lambda: None))
-
-        def tm(fn, *args):
-            out = fn(*args)
-            sync()
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                out = fn(*args)
-            sync()
-            return (time.perf_counter() - t0) / iters, out
-
-        t = {}
-        t["departure"], (dep, ci, w) = tm(self._departure_data, ts, tf)
-        t["interp"], (rho_tgt, q_tgt, nsc) = tm(self._interp_phase, rho, q,
-                                                dep, ci, w)
-        t["rho cdr + dss"], rho_tgt = tm(self._rho_cdr, rho, rho_tgt)
-        t["tracer cdr"], q_new = tm(self._tracer_cdr, rho, q, rho_tgt, q_tgt,
-                                    nsc)
-        t["tracer dss"], _ = tm(self._dss_q, rho_tgt, q_new)
-        full, _ = tm(self.step, rho, q, ts, tf)
-        t["other"] = full - sum(t.values())
-        t["full step"] = full
-        return t

@@ -10,7 +10,7 @@ import re
 import numpy as np
 import torch
 
-from .. import _native
+from .. import _native, trace
 from ..ops import local_qp
 from .cdr_fused import limit_caas
 
@@ -297,6 +297,10 @@ def limit_tracer(F, rho, Q, q_min, q_max, Qm_extra, limiter: str = "caas",
         # JAX package does that with x64 off).
         a = torch.clamp_min(rhom, max(1e-300, torch.finfo(rhom.dtype).tiny))
         y = Q * (1.0 / torch.where(rho == 0, 1.0, rho))
-        x = _spf_run(limiter, a, Qm_tot, q_min, q_max, y)
+        if limiter == "mn2":
+            with trace.span("cdr.mn2"):
+                x = _spf_run(limiter, a, Qm_tot, q_min, q_max, y)
+        else:
+            x = _spf_run(limiter, a, Qm_tot, q_min, q_max, y)
         x = torch.where(rho == 0, q_min, x)
     return x if return_q else x * rho

@@ -13,7 +13,7 @@ sum(Q_mass) + extra_mass, inside [Q_min, Q_max] when feasible.
 
 import torch
 
-from .. import _native
+from .. import _native, trace
 from ..cdr import qlt as qlt_mod
 from ..ops import local_qp
 from ..ops.reduce import bfb_sum
@@ -73,5 +73,7 @@ class MassRedistributor:
                               for x in (Q_mass, Q_min, Q_max))
         extra = torch.as_tensor(extra_mass, dtype=Qm.dtype,
                                 device=Qm.device).expand(Qm.shape[:1])
-        out = self._qlt.run(rho_mass, Qm, Qm_min, Qm_max, root_extra=extra)
+        with trace.span("cdr.qlt"):
+            out = self._qlt.run(rho_mass, Qm, Qm_min, Qm_max,
+                                root_extra=extra)
         return out[0] if squeeze else out

@@ -133,6 +133,6 @@ def test_profile_step_table(capsys):
               "departure_data (all)", "interp 4 tracers",
               "jacobian_departure", "FULL STEP", "step w/o CDR",
               "step nt=1", "records", "limit_tracer (caas)", "dss_q",
-              "phase full step"):
+              "span isl.step", "span isl.departure.trajectory"):
         assert res[k] > 0, k
     assert "FULL STEP" in capsys.readouterr().out
