@@ -17,7 +17,12 @@ Phases (any failure raises, so the exit code is nonzero):
      216 and 1350 cells (timed at 1350, the np8 interp path's), K2 at np2
      4, 9, 36, 64 (timed at ne15 np8's (40, 1350, 64) and, f64, at the
      prefine-5 path's ne30 np8 (40, 5400, 64)), 144 and 256, K3/K4 at np
-     6, 8 and 12 with the sphere measure, bitwise;
+     6, 8 and 12 with the sphere measure, bitwise. Last the trajectory
+     kernel (csrc/dopri5.cu) against the eager chain for one ne30 step of
+     the divergent flow (nsub 8), bitwise, timed on the CGLL nodes and on
+     strip shard 0 of 4's nodes (the four-card cell's per-rank share),
+     its bound counted in operations; the paths below check the launches
+     of every kernel, the trajectory kernel's included;
   3. small references (ne4 np4, 4 tracers, 3 steps: caas/caas and qlt/mn2
      in f64, qlt/mn2 in f32; ne3 np6 qlt/mn2 and ne3 np8 caas-node/caas
      dmc es in f64; the cell-integrated paths' configs at ne3 and a ne2
@@ -141,6 +146,10 @@ KERNELS = {
     "glbl_caas_f32": (K1_SRC, "compose_tpu/transport/cdr_fused.py:57"),
     "limit_caas_f32": (K2_SRC, "compose_tpu/transport/cdr_fused.py:258"),
 }
+# The trajectory kernel's C entries (csrc/dopri5.cu; it replaces no TPU
+# kernel).
+TRAJ_SRC = "compose_tpu_torch/csrc/dopri5.cu"
+TRAJECTORY = ("dopri5_f64", "dopri5_f32")
 # The H100 SXM's published peaks (NVIDIA data sheet): HBM3 3.35 TB/s;
 # 67 TFLOP/s f32 and 34 TFLOP/s f64 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -195,6 +204,15 @@ def device_ms(fn, n=50, reps=5):
     return ms
 
 
+def _launches(names=None):
+    """The launches of each C entry in `names` (default: all of them)
+    since their counters were last set to 0."""
+    from compose_tpu_torch import _native
+
+    return {n: _native.KERNELS[n].launches
+            for n in names or _native.KERNELS}
+
+
 def same(a, b, what):
     if not torch.equal(a, b):
         err = float((a - b).abs().max())
@@ -215,13 +233,13 @@ def bound(tensors, out, flops, dtype):
 
 
 def phase_kernels(dev, stats, dtype, ne=30):
-    """K1, K2 and the DSS merge (K3 in f64, K4 in f32) of `dtype` against
-    their plain versions at each shape the ne30 step launches them at:
-    bitwise equality and bounds, then per shape the device time (CUDA
-    graph), the call time (wrapper + kernel), the plain version's call time
-    and the bound."""
+    """K1, K2, the DSS merge (K3 in f64, K4 in f32) and the trajectory
+    kernel of `dtype` against their plain versions at each shape the ne30
+    step launches them at: bitwise equality and bounds, then per shape the
+    device time (CUDA graph), the call time (wrapper + kernel), the plain
+    version's call time and the bound."""
     from compose_tpu_torch.mesh import cubed_sphere
-    from compose_tpu_torch.transport import cdr_fused, dss
+    from compose_tpu_torch.transport import cdr_fused, dss, gallery, timeint
 
     sfx = {F64: "f64", F32: "f32"}[dtype]
     rng = np.random.default_rng(20261016)
@@ -230,9 +248,11 @@ def phase_kernels(dev, stats, dtype, ne=30):
     ncell, np2, nt = mesh.ncell, mesh.np2, 40
     eps = torch.finfo(dtype).eps
 
-    def record(name, err, fn, plain, args, out, flops, shape, summary=True):
+    def record(name, err, fn, plain, args, out, flops, shape, summary=True,
+               held=", bounds held"):
         """Time one (C entry, shape); the entry's summary numbers are
-        those of its flagship 40-row shape (summary=True)."""
+        those of its flagship shape (summary=True). `held`: what the caller
+        checked besides bitwise equality."""
         row = dict(shape=list(shape), ms=device_ms(fn), call_ms=cuda_ms(fn),
                    plain_ms=cuda_ms(plain), **bound(args, out, flops, dtype))
         st = stats.setdefault(name, dict(shapes=[], library_ms=None,
@@ -242,7 +262,7 @@ def phase_kernels(dev, stats, dtype, ne=30):
         if summary:
             st.update({k: row[k] for k in ("ms", "call_ms", "plain_ms",
                                            "bound_ms", "bound_by")})
-        log(f"{name} {tuple(shape)}: bitwise == plain, bounds held; device "
+        log(f"{name} {tuple(shape)}: bitwise == plain{held}; device "
             f"{row['ms']:.5f} ms, call {row['call_ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms; bound {row['bound_ms']:.5f} ms "
             f"({row['bytes'] / 1e6:.2f} MB, {row['bound_ms'] / row['ms']:.1%}"
@@ -412,6 +432,39 @@ def phase_kernels(dev, stats, dtype, ne=30):
                  f"dss_q_{sfx} ({rows}, {nd}) np{n}")
         log(f"dss_q_{sfx} (1|{nt}, {nd}) ne{ne_n} np{n}, sphere measure: "
             f"bitwise == plain")
+
+    # The trajectory kernel: one step of the benchmark's period (dt = T/120
+    # backward, nsub 8) of the divergent flow, on the CGLL nodes and on the
+    # nodes of strip shard 0 of 4. Bound: operations, counted from the
+    # kernel's source. Per point and substep: 7 wind stages of 60 adds,
+    # multiplies, fmas, compares and selects, 7 divisions (z / r is written
+    # twice and computed once) and 2 square roots each, plus 126 stage-sum
+    # and 30 output operations; then the normalization's 5, 3 divisions
+    # and 1 square root. A division or
+    # square root is its Newton sequence, taken as 10 instructions in f64,
+    # 8 and 6 in f32. Every instruction at the FMA issue rate, so 2 flops
+    # of PEAK_FLOPS each.
+    wind = gallery.create_wind("divergent")
+    dt = 86400.0 * 12 / 120
+    div_i, sqrt_i = (10, 10) if dtype == F64 else (8, 6)
+    instr = (8 * (7 * 60 + 126 + 30 + 49 * div_i + 14 * sqrt_i)
+             + 5 + 3 * div_i + sqrt_i)
+    shard = torch.unique(mesh.dgll2cgll[:ncell // 4].reshape(-1))
+    name = f"dopri5_{sfx}"
+    for pts, summary in ((mesh.cgll_xyz, True), (mesh.cgll_xyz[shard], False)):
+        p = pts.to(dtype).contiguous()
+        args = (37 * dt, 36 * dt, p, 8)
+        before = _launches([name])[name]
+        out = timeint.dopri5(wind, *args)
+        ref = timeint.integrate_plain(wind.velocity, *args)
+        torch.cuda.synchronize()
+        if _launches([name])[name] != before + 1:
+            raise AssertionError(f"{name}: not one launch per call")
+        same(out, ref, f"{name} {tuple(p.shape)}")
+        record(name, 0.0, lambda a=args: timeint.dopri5(wind, *a),
+               lambda a=args: timeint.integrate_plain(wind.velocity, *a),
+               [p], out, 2 * instr * p.shape[0], tuple(p.shape),
+               summary=summary, held="")
 
 
 def _model(dev, ne, nt, dtype, np_=4, basis="GllNodal", **cfg):
@@ -693,18 +746,17 @@ def run_path(dev, name, dtype, nsteps, want, mass_tol=1e-12,
     torch.cuda.reset_peak_memory_stats()
     step_s, per_step = [], []
     for s in range(nsteps):
-        before = {n: k.launches for n, k in _native.KERNELS.items()}
+        before = _launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rho, q = step(rho, q, s * dt, T if s + 1 == period else (s + 1) * dt)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-        per_step.append({n: k.launches - before[n]
-                         for n, k in _native.KERNELS.items()})
+        per_step.append({n: c - before[n] for n, c in _launches().items()})
         obs.add_obs((s + 1) * dt, rho, list(q[observed]))
         if step_check is not None:
             step_check(rho, q)
-    launches = {n: k.launches for n, k in _native.KERNELS.items()}
+    launches = _launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     first_extra = first_extra or {}
@@ -777,14 +829,15 @@ def phase_paths(dev):
     counts = {}
     launches, *_ = run_path(
         dev, "flagship pisl caas/caas (f32 geometry+interp, f64 CDR)", F64,
-        120, {"glbl_caas_f64": 2, "limit_caas_f64": 1, "dss_q_f64": 2},
-        filter="caas", limiter="caas", nsub=8, geom_dtype="f32",
-        interp_dtype="f32")
+        120, {"glbl_caas_f64": 2, "limit_caas_f64": 1, "dss_q_f64": 2,
+              "dopri5_f32": 1}, filter="caas", limiter="caas", nsub=8,
+        geom_dtype="f32", interp_dtype="f32")
     counts.update({n: launches[n] for n in ("glbl_caas_f64",
                                             "limit_caas_f64", "dss_q_f64")})
     launches, model, rho, q, _ = run_path(
         dev, "single-precision pisl qlt/mn2 (x64 off)", F32, 120,
-        {"dss_q_f32": 2}, mass_tol=1e-5, filter="qlt", limiter="mn2",
+        {"dss_q_f32": 2, "dopri5_f32": 1}, mass_tol=1e-5, filter="qlt",
+        limiter="mn2",
         nsub=8)
     counts["dss_q_f32"] = launches["dss_q_f32"]
     # Where the f32 step's time goes, and the mn2 limiter's Newton cost:
@@ -802,12 +855,14 @@ def phase_paths(dev):
         f"{(t50 - t25) / 25:.4f} ms per Newton iteration")
     launches, *_ = run_path(
         dev, "single-precision pisl caas/caas (x64 off)", F32, 12,
-        {"glbl_caas_f32": 2, "limit_caas_f32": 1, "dss_q_f32": 2},
-        mass_tol=1e-5, filter="caas", limiter="caas", nsub=8)
+        {"glbl_caas_f32": 2, "limit_caas_f32": 1, "dss_q_f32": 2,
+         "dopri5_f32": 1}, mass_tol=1e-5, filter="caas", limiter="caas",
+        nsub=8)
     counts.update({n: launches[n] for n in ("glbl_caas_f32",
                                             "limit_caas_f32")})
-    run_path(dev, "pisl qlt/mn2 f64", F64, 12, {"dss_q_f64": 2},
-             filter="qlt", limiter="mn2", nsub=8)
+    run_path(dev, "pisl qlt/mn2 f64", F64, 12,
+             {"dss_q_f64": 2, "dopri5_f64": 1}, filter="qlt", limiter="mn2",
+             nsub=8)
     # The global-only nodal filter with its relaxed-bounds prefilter (K2),
     # conserving the sphere measure; and the high-order Islet
     # configuration of the battery's prefine-0 rows (np8, interpolated
@@ -815,14 +870,15 @@ def phase_paths(dev):
     # np2 64.
     _, model, rho, q, _ = run_path(
         dev, "pisl caas-node/caas dmc es (f64)", F64, 12,
-        {"limit_caas_f64": 1, "dss_q_f64": 2}, measure="sphere",
+        {"limit_caas_f64": 1, "dss_q_f64": 2, "dopri5_f64": 1},
+        measure="sphere",
         filter="caas-node", limiter="caas", dmc="es", nsub=8)
     _log_phases("caas-node/caas dmc es", model, rho, q)
     _, model, rho, q, _ = run_path(
         dev, "pisl caas/caas np8 interp dmc eh (f64)", F64, 12,
-        {"glbl_caas_f64": 2, "limit_caas_f64": 1, "dss_q_f64": 2},
-        ne=15, np_=8, filter="caas", limiter="caas", dmc="eh",
-        timeint="interp", nsub=8)
+        {"glbl_caas_f64": 2, "limit_caas_f64": 1, "dss_q_f64": 2,
+         "dopri5_f64": 1}, ne=15, np_=8, filter="caas", limiter="caas",
+        dmc="eh", timeint="interp", nsub=8)
     _log_phases("np8 interp caas/caas", model, rho, q)
     return counts
 
@@ -837,17 +893,20 @@ def phase_ir_paths(dev):
                         setup=_ir_model(dev, 30, 40, nsub=8, **cfg))
 
     label = "A: ir dmc f caas/caas d2c"
-    want = {"glbl_caas_f64": 1, "limit_caas_f64": 1, "dss_q_f64": 2}
+    want = {"glbl_caas_f64": 1, "limit_caas_f64": 1, "dss_q_f64": 2,
+            "dopri5_f64": 1}
     counts, _, rho1, q1, _ = run(label, IR_A, want)
     _, step, rho, q, dt = run(label, IR_A, want)
     if not (torch.equal(rho1, rho) and torch.equal(q1, q)):
         raise AssertionError("path A: two runs differ")
     log("path A: two runs bitwise equal")
     _profile(f"path {label}", step, rho, q, 12 * dt, dt)
-    for label, cfg in (("B: cdg dmc es qlt/mn2 d2c", IR_B),
-                       ("C: mixed isl (remap_rho dmc eh, ISL qlt/mn2)",
-                        IR_C)):
-        _, step, rho, q, dt = run(label, cfg, {"dss_q_f64": 2})
+    # C integrates the remap's cell vertices and the ISL step's nodes.
+    for label, cfg, ntraj in (("B: cdg dmc es qlt/mn2 d2c", IR_B, 1),
+                              ("C: mixed isl (remap_rho dmc eh, ISL "
+                               "qlt/mn2)", IR_C, 2)):
+        _, step, rho, q, dt = run(label, cfg, {"dss_q_f64": 2,
+                                               "dopri5_f64": ntraj})
         _profile(f"path {label}", step, rho, q, 12 * dt, dt)
     return counts
 
@@ -868,7 +927,8 @@ def phase_prefine_pg(dev):
     label = "P5: prefine 5 ne30 np8/np4 caas/caas dmc eh"
     p5, step, rho, q, dt = run_path(
         dev, f"path {label}", F64, 12,
-        {"glbl_caas_f64": 2, "limit_caas_f64": 2, "dss_q_f64": 1},
+        {"glbl_caas_f64": 2, "limit_caas_f64": 2, "dss_q_f64": 1,
+         "dopri5_f64": 1},
         period=120, setup=setup, first_extra={"limit_caas_f64": 1},
         dofs=(mf.ncell * mf.np2 * 40, " (the fine np8 grid's DOFs)"))
     _profile(f"path {label}", step, rho, q, 12 * dt, dt)
@@ -887,7 +947,8 @@ def phase_prefine_pg(dev):
     label = "PG: ne30pg2 toy chemistry, pisl caas/caas"
     pg, step, rho, q, dt = run_path(
         dev, f"path {label}", F64, 12,
-        {"glbl_caas_f64": 2, "limit_caas_f64": 1, "dss_q_f64": 2},
+        {"glbl_caas_f64": 2, "limit_caas_f64": 1, "dss_q_f64": 2,
+         "dopri5_f64": 1},
         period=120, setup=setup, observed=slice(2, None),
         step_check=toychem_range)
     from compose_tpu_torch import driver
@@ -931,10 +992,12 @@ def phase_precision_paths(dev):
         out[label.split(":")[0]] = res[0][0]
 
     ir("A': ir dmc f caas/caas d2c, f32", IR_A,
-       {"glbl_caas_f32": 1, "limit_caas_f32": 1, "dss_q_f32": 2}, runs=2)
-    ir("B': cdg dmc es qlt/mn2 d2c, f32", IR_B, {"dss_q_f32": 2})
+       {"glbl_caas_f32": 1, "limit_caas_f32": 1, "dss_q_f32": 2,
+        "dopri5_f32": 1}, runs=2)
+    ir("B': cdg dmc es qlt/mn2 d2c, f32", IR_B,
+       {"dss_q_f32": 2, "dopri5_f32": 1})
     ir("C': mixed isl (remap_rho dmc eh, ISL qlt/mn2), f32", IR_C,
-       {"dss_q_f32": 2})
+       {"dss_q_f32": 2, "dopri5_f32": 2})
 
     setup, model = _prefine_setup(dev, 30, 8, 40, dtype=F32, experiment=5,
                                   dmc="eh", nsub=8)
@@ -942,7 +1005,8 @@ def phase_precision_paths(dev):
     label = "P5': prefine 5 ne30 np8/np4 caas/caas dmc eh, f32"
     out["P5'"], step, rho, q, dt = run_path(
         dev, f"path {label}", F32, 12,
-        {"glbl_caas_f32": 2, "limit_caas_f32": 2, "dss_q_f32": 1},
+        {"glbl_caas_f32": 2, "limit_caas_f32": 2, "dss_q_f32": 1,
+         "dopri5_f32": 1},
         period=120, setup=setup, first_extra={"limit_caas_f32": 1},
         dofs=(mf.ncell * mf.np2 * 40, " (the fine np8 grid's DOFs)"), **f32)
     _profile(f"path {label}", step, rho, q, 12 * dt, dt)
@@ -960,7 +1024,8 @@ def phase_precision_paths(dev):
     label = "PG': ne30pg2 toy chemistry, pisl caas/caas, f32"
     out["PG'"], step, rho, q, dt = run_path(
         dev, f"path {label}", F32, 12,
-        {"glbl_caas_f32": 2, "limit_caas_f32": 1, "dss_q_f32": 2},
+        {"glbl_caas_f32": 2, "limit_caas_f32": 1, "dss_q_f32": 2,
+         "dopri5_f32": 1},
         period=120, setup=setup, observed=slice(2, None),
         step_check=toychem_range, **f32)
     _profile(f"path {label}", step, rho, q, 12 * dt, dt)
@@ -969,9 +1034,9 @@ def phase_precision_paths(dev):
         label = f"flagship pisl caas/caas geom {geom} interp {interp}"
         counts, model, rho, q, dt = run_path(
             dev, label, F64, 12,
-            {"glbl_caas_f64": 2, "limit_caas_f64": 1, "dss_q_f64": 2},
-            period=120, filter="caas", limiter="caas", nsub=8,
-            geom_dtype=geom, interp_dtype=interp)
+            {"glbl_caas_f64": 2, "limit_caas_f64": 1, "dss_q_f64": 2,
+             f"dopri5_{geom}": 1}, period=120, filter="caas",
+            limiter="caas", nsub=8, geom_dtype=geom, interp_dtype=interp)
         _profile(label, model.step, rho, q, 12 * dt, dt)
         out[f"geom{geom}-interp{interp}"] = counts
     return out
@@ -990,14 +1055,17 @@ def _shape_row(stats, name, shape, fn, plain, args, out, flops, dtype):
         f"of it)")
 
 
-def _sharded_run(label, sh, ref, times, want, ulp_bar=0, bounds=True):
+def _sharded_run(label, sh, ref, times, want, ulp_bar=0, bounds=True,
+                 first_extra=None):
     """Drive `sh` (a ShardedIsl or ShardedIr) from ref[0] through `times`
     with every launch count set to 0 just before and read just after:
     each step against the single-device states `ref` (bitwise, or within
-    `ulp_bar` ulp), its launches against `want` (per step; no other kernel
-    may launch), the halo's coverage, and the Observer's bars in the GLL
-    measure: mass, and bounds unless `bounds` is False (a path without a
-    limiter). Returns the launch counts."""
+    `ulp_bar` ulp), its launches against `want` (per step, plus
+    `first_extra` in the first, whose own coverage check of the step size
+    integrates every node once; no other kernel may launch), the halo's
+    coverage, and the Observer's bars in the GLL measure: mass, and bounds
+    unless `bounds` is False (a path without a limiter). Returns the
+    launch counts."""
     from compose_tpu_torch import _native
     from compose_tpu_torch.diagnostics import Observer
 
@@ -1013,14 +1081,16 @@ def _sharded_run(label, sh, ref, times, want, ulp_bar=0, bounds=True):
         if not sh.coverage_ok(t0, t1):
             raise AssertionError(f"{label}: step {s}: the halo misses the "
                                  f"departure footprint")
-        before = {n: k.launches for n, k in _native.KERNELS.items()}
+        before = _launches()
         torch.cuda.synchronize()
         w0 = time.perf_counter()
         rho, q = sh.step(rho, q, t0, t1)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - w0)
-        per = {n: k.launches - before[n] for n, k in _native.KERNELS.items()}
-        if per != {n: want.get(n, 0) for n in _native.KERNELS}:
+        per = {n: c - before[n] for n, c in _launches().items()}
+        extra = (first_extra or {}) if s == 0 else {}
+        if per != {n: want.get(n, 0) + extra.get(n, 0)
+                   for n in _native.KERNELS}:
             raise AssertionError(f"{label}: step {s}: launches {per}")
         for a, b in zip((rho, q), ref[s + 1]):
             ulp = float(((a - b).abs() / (torch.finfo(a.dtype).eps
@@ -1044,7 +1114,7 @@ def _sharded_run(label, sh, ref, times, want, ulp_bar=0, bounds=True):
         f"per shard and step {sh.bytes_per_step(q.shape[0]) / 1e6:.4f} MB; "
         f"Observer mass {mass_err:.3e} bounds {bounds_err:.3e}; launches/"
         f"step " + " ".join(f"{n} {c}" for n, c in want.items()))
-    return {n: k.launches for n, k in _native.KERNELS.items()}
+    return _launches()
 
 
 def _ref_states(step, rho, q, times):
@@ -1118,29 +1188,36 @@ def phase_sharded(dev, stats):
             f"halo {sh.maps.halo_size} cells, DSS halo {sh.halo_slots} "
             f"slots")
         got = _sharded_run(f"sharded flagship pisl caas/caas, 8 shards, "
-                           f"{label}", sh, ref, times, {K2: 8, K3: 16})
+                           f"{label}", sh, ref, times,
+                           {K2: 8, K3: 16, "dopri5_f32": 8},
+                           first_extra={"dopri5_f32": 1})
         flag = {n: flag[n] + got[n] for n in KERNELS}
 
-    for filt, lim, want in (("qlt", "mn2", {K3: 32}),
-                            ("caas-node", "caas", {K2: 16, K3: 32})):
+    for filt, lim, want in (("qlt", "mn2", {K3: 32, "dopri5_f32": 16}),
+                            ("caas-node", "caas",
+                             {K2: 16, K3: 32, "dopri5_f32": 16})):
         _, m16, rho, q = _model(dev, 30, nt, F64, filter=filt, limiter=lim,
                                 nsub=8, geom_dtype="f32", interp_dtype="f32")
         ref16 = _ref_states(m16.step, rho, q, times[:3])
         _sharded_run(f"sharded ne30 over 16 (ragged) {filt}/{lim}",
-                     ShardedIsl(m16, 16), ref16, times[:3], want)
+                     ShardedIsl(m16, 16), ref16, times[:3], want,
+                     first_extra={"dopri5_f32": 1})
 
     # ShardedIr, path A's config: projection leg (no CDR, no DSS) and the
     # full step, held as the JAX package's dryrun_ir holds them (bitwise;
     # <= 2 ulp).
     for cfg, want, bar, what in (
-            (dict(IR_A, filter="none", limiter="none", d2c=False), {}, 0,
-             "projection leg (ir dmc f, no CDR, no d2c)"),
-            (IR_A, {K2: 8, K3: 8}, 2, "path A (ir dmc f caas/caas d2c)")):
+            (dict(IR_A, filter="none", limiter="none", d2c=False),
+             {"dopri5_f64": 8}, 0, "projection leg (ir dmc f, no CDR, no "
+             "d2c)"),
+            (IR_A, {K2: 8, K3: 8, "dopri5_f64": 8}, 2,
+             "path A (ir dmc f caas/caas d2c)")):
         _, step, rho, q, _ = _ir_model(dev, 30, nt, nsub=8, **cfg)
         refi = _ref_states(step, rho, q, times[:3])
         _sharded_run(f"ShardedIr {what}, 8 shards",
                      ShardedIr(step.__self__, 8), refi, times[:3], want,
-                     ulp_bar=bar, bounds=cfg["filter"] != "none")
+                     ulp_bar=bar, bounds=cfg["filter"] != "none",
+                     first_extra={"dopri5_f64": 1})
     d = dryrun_ir(8, dev)
     log(f"dryrun_ir (ne4, 8 shards, dmc es): projection {d[0]:.3e}, full "
         f"step {d[1]:.3e} from the single-device step (bars 0 and 2 ulp)")
@@ -1242,7 +1319,7 @@ def _dtensor_flagship(dev, mesh, world, nsteps, label, verbose=True):
             full = a.full_tensor()
             bitwise = bitwise and torch.equal(full, b)
             diff = max(diff, float((full - b).abs().max()))
-    launches = {n: k.launches for n, k in _native.KERNELS.items()}
+    launches = _launches()
     (log if verbose else (lambda *a: None))(
         f"{label}: {world} rank(s), {nsteps} steps: step "
         f"{statistics.median(step_s[1:]) * 1e3:.3f} ms (median of steps "
@@ -1397,7 +1474,7 @@ def phase_entry_points(dev):
     import tempfile
 
     import torch.distributed as dist
-    from compose_tpu_torch import bench
+    from compose_tpu_torch import _native, bench
     from compose_tpu_torch.parallel import cell_mesh
     from compose_tpu_torch.tools import profile_step, qlt_perftest
 
@@ -1426,8 +1503,9 @@ def phase_entry_points(dev):
             res = _dtensor_flagship(dev, mesh, 1, 3,
                                     "DTensor flagship (sharded_step), NCCL")
             launches = res["launches"]
-            want = {"glbl_caas_f64": 2, "limit_caas_f64": 1, "dss_q_f64": 2}
-            expect = {n: want.get(n, 0) * 3 for n in KERNELS}
+            want = {"glbl_caas_f64": 2, "limit_caas_f64": 1, "dss_q_f64": 2,
+                    "dopri5_f32": 1}
+            expect = {n: want.get(n, 0) * 3 for n in _native.KERNELS}
             if launches != expect:
                 raise AssertionError(f"DTensor flagship: launches {launches}"
                                      f" != {expect}")
@@ -1482,9 +1560,9 @@ def phase_dryrun(dev):
         outs.append(fn(rho, q))
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - w0)
-    got = {n: k.launches for n, k in _native.KERNELS.items()}
-    want = {n: {"limit_caas_f64": 1, "dss_q_f64": 2}.get(n, 0)
-            for n in KERNELS}
+    got = _launches()
+    want = {n: {"limit_caas_f64": 1, "dss_q_f64": 2, "dopri5_f64": 1}.get(
+        n, 0) for n in _native.KERNELS}
     if got != {n: 2 * c for n, c in want.items()}:
         raise AssertionError(f"entry(): launches over two calls {got}")
     per_call = {n: c // 2 for n, c in got.items()}
@@ -1507,12 +1585,14 @@ def phase_dryrun(dev):
     report = {}
     acct = dryrun.dryrun_multichip(8, dev, report=report)
     sec = time.perf_counter() - w0
-    multi = {n: k.launches for n, k in _native.KERNELS.items()}
+    multi = _launches()
     # K2/K3: strips 8/16, the single-device reference 1/2, tiles 8/16;
     # dryrun_ir's single-device caas step K1 1, K2 1, K3 2 and its sharded
-    # step 8/8.
-    want = {"glbl_caas_f64": 1, "limit_caas_f64": 26, "dss_q_f64": 44}
-    if multi != {n: want.get(n, 0) for n in KERNELS}:
+    # step 8/8. The trajectory kernel: 40 f64 launches over those legs, and
+    # the measured-footprint leg's 120 integrations in f32.
+    want = {"glbl_caas_f64": 1, "limit_caas_f64": 26, "dss_q_f64": 44,
+            "dopri5_f64": 40, "dopri5_f32": 120}
+    if multi != {n: want.get(n, 0) for n in _native.KERNELS}:
         raise AssertionError(f"dry run: launches {multi}")
     diffs = report["max_diff"]
     log(f"dryrun_multichip(8) over LocalComm on the card: strips "
@@ -1856,7 +1936,9 @@ def main():
              launches_gspmd=gspmd_launches[n],
              launches_dryrun={p: c[n] for p, c in dryrun_launches.items()},
              **{k: stats[n][k] for k in keys})
-        for n, (src, rep) in KERNELS.items()]}))
+        for n, (src, rep) in KERNELS.items()] + [
+        dict(name=n, route="cuda", source=TRAJ_SRC, replaces=None,
+             **{k: stats[n][k] for k in keys}) for n in TRAJECTORY]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

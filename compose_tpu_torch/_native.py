@@ -51,6 +51,8 @@ _ARGTYPES = {
     # w, F, q, slots, out, nt, nin (row length of w, F, q), nout (output
     # slots), stream
     "dss_q": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # p, out, n, nsub, normalize, wind, table (host doubles), stream
+    "dopri5": (_P, _P, _I, _I, _I, _I, _P, _P),
 }
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _SIGNATURES = {f"{k}_{sfx}": v for k, v in _ARGTYPES.items()
@@ -150,8 +152,8 @@ KERNELS = {name: Kernel(name) for name in _SIGNATURES}
 
 
 def kernel(base: str, dtype) -> Kernel:
-    """The Kernel of `base` ('glbl_caas', 'limit_caas', 'dss_q') for float
-    dtype `dtype`."""
+    """The Kernel of `base` ('glbl_caas', 'limit_caas', 'dss_q', 'dopri5')
+    for float dtype `dtype`."""
     if dtype not in _SUFFIX:
         raise TypeError(f"{base}: no kernel for {dtype}")
     return KERNELS[f"{base}_{_SUFFIX[dtype]}"]

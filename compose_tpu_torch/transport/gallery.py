@@ -10,6 +10,11 @@ Winds take the time as a Python float and positions p (..., 3). The
 time-only trig is scalar, so it is evaluated on the host, rounded to p's
 dtype as the JAX package rounds it (an f32 geometry pipeline evaluates its
 times in f32); only per-point arithmetic runs on the device.
+
+The two deformational flows have a native form in the trajectory kernel
+csrc/dopri5.cu: `native` is the flow's code there, and `vscale`, v's
+factor over T, is handed to the kernel (timeint.dopri5_table). Other winds
+have no `native` and are integrated eagerly.
 """
 
 import numpy as np
@@ -37,6 +42,18 @@ def _uv2xyz(p, u, v):
     return u[..., None] * e_e + v[..., None] * e_n + w[..., None] * e_r
 
 
+def time_trig(t, T, dtype):
+    """(cos c, sin c, cos(pi t/T)), c = 2 pi t/T: the time part of
+    `_trig_frame`, each scalar rounded in `dtype` by numpy's scalar
+    arithmetic on the host, as Python floats. The trajectory kernel's
+    wrapper (timeint.dopri5_table) takes its stage scalars from here."""
+    s = np_scalar(dtype)
+    tt, Ts = s(t), s(T)
+    c = s(s(s(2 * np.pi) * tt) / Ts)
+    h = s(s(s(np.pi) * tt) / Ts)
+    return float(np.cos(c)), float(np.sin(c)), float(np.cos(h))
+
+
 def _trig_frame(t, p, T):
     """sin/cos of latitude and of the shifted longitude lon - 2 pi t/T,
     computed algebraically from the cartesian coordinates; plus cos(pi
@@ -50,11 +67,7 @@ def _trig_frame(t, p, T):
     d_s = torch.where(polar, 1.0, d)
     coslam = torch.where(polar, 1.0, X / d_s)
     sinlam = torch.where(polar, 0.0, Y / d_s)
-    s = np_scalar(p.dtype)
-    tt, Ts = s(t), s(T)
-    c = s(s(s(2 * np.pi) * tt) / Ts)
-    cc, sc = float(np.cos(c)), float(np.sin(c))
-    cost = float(np.cos(s(s(s(np.pi) * tt) / Ts)))
+    cc, sc, cost = time_trig(t, T, p.dtype)
     sinlp = sinlam * cc - coslam * sc
     coslp = coslam * cc + sinlam * sc
     return sinth, costh, sinlp, coslp, cost
@@ -67,13 +80,15 @@ class DivergentWindField:
         v = 2.5 R/T sin(lam') cos^3(th) cos(pi t/T)."""
 
     T = constants.day2sec(12)
+    vscale = 2.5            # v's factor over T
+    native = 0              # the wind's code in csrc/dopri5.cu
 
     def velocity(self, t, p):
         T = self.T
         sinth, costh, sinlp, coslp, cost = _trig_frame(t, p, T)
         costh2 = costh * costh
         sin2lat = 2 * sinth * costh
-        v = 2.5 / T * sinlp * costh2 * costh * cost
+        v = self.vscale / T * sinlp * costh2 * costh * cost
         u = 1 / T * (-5 * (0.5 * (1 - coslp)) * sin2lat * costh2 * cost
                      + 2 * np.pi * costh)
         return _uv2xyz(p, u, v)
@@ -85,12 +100,14 @@ class NonDivergentWindField:
         v = 10 R/T sin(2 lam') cos(th) cos(pi t/T)."""
 
     T = constants.day2sec(12)
+    vscale = 10.0
+    native = 1
 
     def velocity(self, t, p):
         T = self.T
         sinth, costh, sinlp, coslp, cost = _trig_frame(t, p, T)
         sin2lat = 2 * sinth * costh
-        v = 10 / T * (2 * sinlp * coslp) * costh * cost
+        v = self.vscale / T * (2 * sinlp * coslp) * costh * cost
         u = 1 / T * (10 * sinlp * sinlp * sin2lat * cost + 2 * np.pi * costh)
         return _uv2xyz(p, u, v)
 

@@ -184,11 +184,11 @@ def test_dss_q_kernel_any_np_sphere(dev, dtype, ne, n, nt):
 # tracers, 2 steps: the caas-node filter and the np8 interp path.
 STEP_CASES = {
     "caasnode_es": (4, dict(filter="caas-node", limiter="caas", dmc="es"),
-                    {"limit_caas_f64": 1, "dss_q_f64": 2}),
+                    {"limit_caas_f64": 1, "dss_q_f64": 2, "dopri5_f64": 1}),
     "np8_interp_eh": (8, dict(filter="caas", limiter="caas",
                               timeint="interp", dmc="eh"),
                       {"glbl_caas_f64": 2, "limit_caas_f64": 1,
-                       "dss_q_f64": 2}),
+                       "dss_q_f64": 2, "dopri5_f64": 1}),
 }
 
 
@@ -227,14 +227,17 @@ IR_CASES = {
     "ir_f_caas_caas_d2c": (dict(method="ir", dmc="f", filter="caas",
                                 limiter="caas"),
                            {"glbl_caas_f64": 1, "limit_caas_f64": 1,
-                            "dss_q_f64": 2}),
+                            "dss_q_f64": 2, "dopri5_f64": 1}),
     "cdg_es_qlt_mn2_d2c": (dict(method="cdg", dmc="es", filter="qlt",
-                                limiter="mn2"), {"dss_q_f64": 2}),
+                                limiter="mn2"),
+                           {"dss_q_f64": 2, "dopri5_f64": 1}),
     "ir_eh_caas_caas": (dict(method="ir", dmc="eh", filter="caas",
                              limiter="caas", d2c=False),
-                        {"glbl_caas_f64": 1, "limit_caas_f64": 1}),
+                        {"glbl_caas_f64": 1, "limit_caas_f64": 1,
+                         "dopri5_f64": 1}),
+    # The remap's cell vertices and the ISL step's nodes: two trajectories.
     "mixed_isl": (dict(method="ir", dmc="eh", filter="none",
-                       limiter="none"), {"dss_q_f64": 2}),
+                       limiter="none"), {"dss_q_f64": 2, "dopri5_f64": 2}),
 }
 
 
@@ -281,8 +284,10 @@ def test_ir_step_card_vs_cpu(dev, case):
 # 36) and, under exp 5, in the t -> v transfer (np2 16) and the first
 # step's v -> t transfer (np2 36).
 PREFINE_CASES = {
-    5: {"glbl_caas_f64": 4, "limit_caas_f64": 5, "dss_q_f64": 2},
-    1: {"glbl_caas_f64": 4, "limit_caas_f64": 2, "dss_q_f64": 2},
+    5: {"glbl_caas_f64": 4, "limit_caas_f64": 5, "dss_q_f64": 2,
+        "dopri5_f64": 2},
+    1: {"glbl_caas_f64": 4, "limit_caas_f64": 2, "dss_q_f64": 2,
+        "dopri5_f64": 2},
 }
 
 
@@ -507,7 +512,8 @@ def test_dtensor_step_card(dev, one_rank):
 
 def test_entry_step_card(dev):
     # entry()'s step on the card (its default device) against the same
-    # step on the CPU; K2 once and K3 twice per call, K1 never.
+    # step on the CPU; K2 once, K3 twice and the trajectory kernel once per
+    # call, K1 never.
     from compose_tpu_torch.tools import dryrun
 
     fn, (rho, q) = dryrun.entry()
@@ -515,8 +521,8 @@ def test_entry_step_card(dev):
     before = {n: k.launches for n, k in _native.KERNELS.items()}
     out = fn(rho, q)
     got = {n: k.launches - before[n] for n, k in _native.KERNELS.items()}
-    assert got == {n: {"limit_caas_f64": 1, "dss_q_f64": 2}.get(n, 0)
-                   for n in _native.KERNELS}
+    assert got == {n: {"limit_caas_f64": 1, "dss_q_f64": 2,
+                       "dopri5_f64": 1}.get(n, 0) for n in _native.KERNELS}
     fn_cpu, _ = dryrun.entry(device="cpu")
     ref = fn_cpu(rho.cpu(), q.cpu())
     for a, b in zip(out, ref):
@@ -540,3 +546,149 @@ def test_dryrun_multichip_card(dev):
         for name, v in row.items():
             if name.endswith("_bytes"):
                 assert acct[k][name] == v, (k, name)
+
+
+# ---------------------------------------------------------------------------
+# The trajectory kernel (csrc/dopri5.cu) against the eager chain, bitwise.
+
+DT = 86400.0 * 12 / 120          # the benchmark's step: T / 120
+CELL_OPTIONS = {"isl_caas": dict(filter="caas", limiter="caas",
+                                 geom_dtype="f32", interp_dtype="f32"),
+                "isl_qlt": dict(filter="qlt", limiter="mn2")}
+
+
+def _dopri5_case(p, wind_name, ts, tf, nsub):
+    from compose_tpu_torch.transport import gallery, timeint
+
+    wind = gallery.create_wind(wind_name)
+    k = _native.kernel("dopri5", p.dtype)
+    before = k.launches
+    got = timeint.integrate(wind.velocity, ts, tf, p, nsub)
+    assert k.launches == before + (nsub + 7) // 8
+    want = timeint.integrate_plain(wind.velocity, ts, tf, p, nsub)
+    assert torch.equal(got, want), (wind_name, ts, tf, nsub, int(
+        (got != want).any(-1).sum()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, F32], ids=["f64", "f32"])
+def test_dopri5_kernel_ne30_every_step_time(dev, dtype):
+    # The ne30 np4 CGLL nodes, backward over each of the 240 steps of the
+    # benchmark's period (two of the wind's), 8 substeps.
+    p = cubed_sphere.build(30, 4, device=dev).cgll_xyz.to(dtype)
+    for k in range(240):
+        _dopri5_case(p, "divergent", (k + 1) * DT, k * DT, 8)
+
+
+@pytest.mark.parametrize("nsub", [1, 3, 8, 20])
+@pytest.mark.parametrize("wind_name", ["divergent", "nondivergent"])
+@pytest.mark.parametrize("dtype", [torch.float64, F32], ids=["f64", "f32"])
+def test_dopri5_kernel_cloud_and_poles(dev, dtype, wind_name, nsub):
+    # Seeded points off the unit sphere and points on the polar axis (the
+    # frames' polar branches); nsub 20 chains three launches.
+    rng = np.random.default_rng(nsub)
+    p = rng.normal(size=(5000, 3)) * rng.uniform(0.5, 1.5, (5000, 1))
+    p = np.concatenate([p, [[0, 0, 1.0], [0, 0, -1.0], [0, 0, 0.9],
+                            [0, 0, -1.1], [1e-200, 0, 1.0]]])
+    p = _t(p, dev, dtype)
+    for ts, tf in ((37 * DT, 36 * DT), (0.0, DT), (5000.0, 9000.0)):
+        _dopri5_case(p, wind_name, ts, tf, nsub)
+
+
+def test_dopri5_kernel_shard_nodes(dev):
+    # The four-card cell's per-rank points: each strip shard's nodes of
+    # ShardedIsl(model, 4) at ne30, in f32, through _departure_points.
+    from compose_tpu_torch.parallel import ShardedIsl
+    from compose_tpu_torch.transport import gallery, timeint
+    from compose_tpu_torch.transport.isl import IslConfig, IslTransport
+
+    mesh = cubed_sphere.build(30, 4, device=dev)
+    model = IslTransport(mesh, gallery.create_wind("divergent"),
+                         IslConfig(ne=30, nsub=8, **CELL_OPTIONS["isl_caas"]))
+    k = _native.kernel("dopri5", F32)
+    for t in ShardedIsl(model, 4).shards:
+        before = k.launches
+        got = model._departure_points(36 * DT, 37 * DT, t.nodes)
+        assert k.launches == before + 1
+        want = timeint.integrate_plain(model.wind.velocity, 37 * DT, 36 * DT,
+                                       mesh.cgll_xyz[t.nodes].to(F32), 8)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("cell", list(CELL_OPTIONS))
+def test_dopri5_step_bitwise_vs_eager(dev, cell, monkeypatch):
+    # One ne30 step of each one-card cell's options (4 tracers) with the
+    # kernel, then with it turned off (no wind of native form): bitwise,
+    # and the tracer counts one kernel call, then one eager call.
+    from compose_tpu_torch import driver, trace
+    from compose_tpu_torch.transport import gallery, timeint
+    from compose_tpu_torch.transport.isl import IslConfig, IslTransport
+
+    mesh = cubed_sphere.build(30, 4, device=dev)
+    model = IslTransport(mesh, gallery.create_wind("divergent"),
+                         IslConfig(ne=30, nsub=8, **CELL_OPTIONS[cell]))
+    rho = torch.ones((mesh.ncell, 16), dtype=torch.float64, device=dev)
+    q = driver.init_tracers(mesh, ["gaussianhills", "slottedcylinders",
+                                   "cosinebells", "xyztrig"])
+    trace.reset()
+    trace.enable()
+    try:
+        out = model.step(rho, q, 36 * DT, 37 * DT)
+        on = dict(trace.summary()["counters"])
+        trace.reset()
+        monkeypatch.setattr(gallery.DivergentWindField, "native", None)
+        ref = model.step(rho, q, 36 * DT, 37 * DT)
+        off = dict(trace.summary()["counters"])
+    finally:
+        trace.disable()
+        trace.reset()
+    assert on.get("trajectory.kernel") == 1 and "trajectory.eager" not in on
+    assert off.get("trajectory.eager") == 1 and "trajectory.kernel" not in off
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+
+
+def test_dopri5_kernel_refuses_bad_points(dev):
+    # The wrapper refuses what the kernel cannot read; `integrate` gives it
+    # a contiguous (N, 3) copy of strided points and of other shapes, and
+    # equals the eager chain on that copy (the chain's norm sums a strided
+    # row in another order than a contiguous one).
+    from compose_tpu_torch.transport import gallery, timeint
+
+    wind = gallery.create_wind("divergent")
+    rng = np.random.default_rng(2)
+    strided = _t(rng.normal(size=(3, 64)), dev).t()
+    assert strided.shape == (64, 3) and not strided.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        timeint.dopri5(wind, DT, 0.0, strided)
+    with pytest.raises(TypeError, match="no kernel"):
+        timeint.dopri5(wind, DT, 0.0, strided.contiguous().half())
+    with pytest.raises(ValueError, match=r"\(N, 3\)"):
+        timeint.dopri5(wind, DT, 0.0, _t(rng.normal(size=(64, 4)), dev))
+    k = _native.kernel("dopri5", torch.float64)
+    for p in (strided, strided.reshape(8, 8, 3), strided.contiguous()):
+        before = k.launches
+        got = timeint.integrate(wind.velocity, DT, 0.0, p, 8)
+        assert k.launches == before + 1 and got.shape == p.shape
+        want = timeint.integrate_plain(wind.velocity, DT, 0.0,
+                                       p.reshape(-1, 3).contiguous(), 8)
+        assert torch.equal(got, want.reshape(p.shape))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, F32], ids=["f64", "f32"])
+def test_dopri5_kernel_on_dtensors(dev, one_rank, dtype):
+    # CUDA DTensor points reach the kernel through local_map, in their own
+    # placements, never the eager chain.
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from compose_tpu_torch.transport import gallery, timeint
+
+    wind = gallery.create_wind("divergent")
+    rng = np.random.default_rng(7)
+    p = _t(rng.normal(size=(96, 3)), dev, dtype)
+    want = timeint.integrate_plain(wind.velocity, 37 * DT, 36 * DT, p, 8)
+    k = _native.kernel("dopri5", dtype)
+    for pl in (Shard(0), Replicate()):
+        before = k.launches
+        got = timeint.integrate(wind.velocity, 37 * DT, 36 * DT,
+                                distribute_tensor(p, one_rank, [pl]), 8)
+        assert k.launches == before + 1
+        assert got.placements == (pl,)
+        assert torch.equal(got.full_tensor(), want)
