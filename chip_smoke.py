@@ -21,8 +21,11 @@ Phases (any failure raises, so the exit code is nonzero):
      kernel (csrc/dopri5.cu) against the eager chain for one ne30 step of
      the divergent flow (nsub 8), bitwise, timed on the CGLL nodes and on
      strip shard 0 of 4's nodes (the four-card cell's per-rank share),
-     its bound counted in operations; the paths below check the launches
-     of every kernel, the trajectory kernel's included;
+     its bound counted in operations; then the QLT tree kernel
+     (csrc/qlt_tree.cu) against the eager level loop at (1|40, 5400) with
+     masses off their bounds and a nonzero root extra, bitwise, timed,
+     its bound in bytes; the paths below check the launches of every
+     kernel, the trajectory and QLT kernels' included;
   3. small references (ne4 np4, 4 tracers, 3 steps: caas/caas and qlt/mn2
      in f64, qlt/mn2 in f32; ne3 np6 qlt/mn2 and ne3 np8 caas-node/caas
      dmc es in f64; the cell-integrated paths' configs at ne3 and a ne2
@@ -35,9 +38,9 @@ Phases (any failure raises, so the exit code is nonzero):
          interpolation, f64 CDR) for one 12-day period of 120 steps: K1,
          K2, K3;
        - the single-precision route of the default CDR (pisl QLT/mn2,
-         x64 off) for 120 steps: K4;
+         x64 off) for 120 steps: the QLT kernel twice (rho, tracers), K4;
        - CAAS/CAAS with x64 off for 12 steps: K1, K2 and K4 in f32;
-       - QLT/mn2 in f64 for 12 steps: K3;
+       - QLT/mn2 in f64 for 12 steps: the QLT kernel twice, K3;
        - caas-node/caas dmc es in f64 (sphere measure) for 12 steps: K2
          (the prefilter), K3;
        - ne15 np8 caas/caas with interpolated trajectories, dmc eh, in f64
@@ -48,9 +51,10 @@ Phases (any failure raises, so the exit code is nonzero):
      busy share and launches over 3 more steps:
        - A: ir, dmc f, caas/caas, d2c: K1, K2, K3 twice; run twice, and
          the two runs must be bitwise equal;
-       - B: cdg, dmc es, qlt/mn2, d2c: K3 twice;
+       - B: cdg, dmc es, qlt/mn2, d2c: the QLT kernel, K3 twice;
        - C: the mixed isl method (IrTransport.remap_rho with dmc eh, then
-         the ISL step with qlt/mn2 and that target density): K3 twice;
+         the ISL step with qlt/mn2 and that target density): the QLT
+         kernel, K3 twice;
      and the p-refinement and physics-grid paths (ne30, 40 tracers, f64,
      12 steps of 2.4 h, each profiled over 3 more), with the small
      references of their configs (prefine 5 and 1 at ne3 np6, the pg2 toy
@@ -112,12 +116,12 @@ world-size-1 run.
 Then the single-device entry step, the multi-device dry run and the
 comm-volume accounting (phase_dryrun, compose_tpu_torch/tools/dryrun.py,
 the port of the repo root's entry module): entry()'s ne6 step on the
-card twice (bitwise) against the CPU (1e-12), K2 1 and K3 2 per call;
-dryrun_multichip(8) over LocalComm (strips and tiles bitwise, dryrun_ir,
-K1 1, K2 26, K3 44 in all; its single-device steps against the CPU,
-1e-12); every byte of its accounting at ne30, the measured-footprint leg
-(timed) included, equal to MULTICHIP_comm.json (the JAX package's output
-at 8 devices). With 2 or
+card twice (bitwise) against the CPU (1e-12), K2 1, K3 2 and the QLT
+kernel 2 per call; dryrun_multichip(8) over LocalComm (strips and tiles
+bitwise, dryrun_ir, K1 1, K2 26, K3 44, the QLT kernel 2 in all; its
+single-device steps against the CPU, 1e-12); every byte of its
+accounting at ne30, the measured-footprint leg (timed) included, equal to
+MULTICHIP_comm.json (the JAX package's output at 8 devices). With 2 or
 more cards the NCCL leg also runs dryrun_multichip over DistComm. The
 kernels' JSON adds `launches_dryrun` (per entry() call, and in the dry
 run).
@@ -150,6 +154,10 @@ KERNELS = {
 # kernel).
 TRAJ_SRC = "compose_tpu_torch/csrc/dopri5.cu"
 TRAJECTORY = ("dopri5_f64", "dopri5_f32")
+# The QLT tree kernel's C entries (csrc/qlt_tree.cu; it replaces no TPU
+# kernel: the JAX package leaves the level loop to XLA).
+QLT_SRC = "compose_tpu_torch/csrc/qlt_tree.cu"
+QLT_TREE = ("qlt_tree_f64", "qlt_tree_f32")
 # The H100 SXM's published peaks (NVIDIA data sheet): HBM3 3.35 TB/s;
 # 67 TFLOP/s f32 and 34 TFLOP/s f64 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -233,11 +241,12 @@ def bound(tensors, out, flops, dtype):
 
 
 def phase_kernels(dev, stats, dtype, ne=30):
-    """K1, K2, the DSS merge (K3 in f64, K4 in f32) and the trajectory
-    kernel of `dtype` against their plain versions at each shape the ne30
-    step launches them at: bitwise equality and bounds, then per shape the
-    device time (CUDA graph), the call time (wrapper + kernel), the plain
-    version's call time and the bound."""
+    """K1, K2, the DSS merge (K3 in f64, K4 in f32), the trajectory kernel
+    and the QLT tree kernel of `dtype` against their plain versions at each
+    shape the ne30 step launches them at: bitwise equality and bounds, then
+    per shape the device time (CUDA graph), the call time (wrapper +
+    kernel), the plain version's call time and the bound."""
+    from compose_tpu_torch.cdr import qlt
     from compose_tpu_torch.mesh import cubed_sphere
     from compose_tpu_torch.transport import cdr_fused, dss, gallery, timeint
 
@@ -465,6 +474,32 @@ def phase_kernels(dev, stats, dtype, ne=30):
                lambda a=args: timeint.integrate_plain(wind.velocity, *a),
                [p], out, 2 * instr * p.shape[0], tuple(p.shape),
                summary=summary, held="")
+
+    # The QLT tree kernel: the spf filter's call for the 40 tracers and
+    # for rho, with qlt_perftest's draws (masses off their bounds, so the
+    # node problems adjust bounds and solve) and a nonzero root extra.
+    # Bound: bytes, the four input channels and the extra read once, the
+    # leaf masses written once.
+    name = f"qlt_tree_{sfx}"
+    solver = qlt.QLT(ncell)
+    for rows in (nt, 1):
+        r = rng.uniform(0.5, 1.0, ncell)
+        qmin = rng.uniform(0, .3, (rows, ncell))
+        qmax = qmin + rng.uniform(.2, .5, (rows, ncell))
+        Qm = ((qmin + (qmax - qmin) * rng.uniform(0, 1, (rows, ncell))) * r
+              + 0.2 * rng.standard_normal((rows, ncell)) * r)
+        args = [torch.tensor(x, **kw) for x in (
+            r, Qm, qmin * r, qmax * r, rng.standard_normal(rows))]
+        before = _launches([name])[name]
+        out = solver.run(*args[:4], root_extra=args[4])
+        ref = solver.run_plain(*args[:4], root_extra=args[4])
+        torch.cuda.synchronize()
+        if _launches([name])[name] != before + 1:
+            raise AssertionError(f"{name}: not one launch per run")
+        same(out, ref, f"{name} ({rows}, {ncell})")
+        record(name, 0.0, lambda a=args: solver.run(*a[:4], root_extra=a[4]),
+               lambda a=args: solver.run_plain(*a[:4], root_extra=a[4]),
+               args, out, 0, (rows, ncell), summary=rows == nt, held="")
 
 
 def _model(dev, ne, nt, dtype, np_=4, basis="GllNodal", **cfg):
@@ -836,10 +871,9 @@ def phase_paths(dev):
                                             "limit_caas_f64", "dss_q_f64")})
     launches, model, rho, q, _ = run_path(
         dev, "single-precision pisl qlt/mn2 (x64 off)", F32, 120,
-        {"dss_q_f32": 2, "dopri5_f32": 1}, mass_tol=1e-5, filter="qlt",
-        limiter="mn2",
-        nsub=8)
-    counts["dss_q_f32"] = launches["dss_q_f32"]
+        {"dss_q_f32": 2, "dopri5_f32": 1, "qlt_tree_f32": 2}, mass_tol=1e-5,
+        filter="qlt", limiter="mn2", nsub=8)
+    counts.update({n: launches[n] for n in ("dss_q_f32", "qlt_tree_f32")})
     # Where the f32 step's time goes, and the mn2 limiter's Newton cost:
     # its QP at the step's shapes, timed at 25 and at 50 iterations (the
     # f64-eps residual tolerance is out of f32's reach, so both run to
@@ -860,9 +894,11 @@ def phase_paths(dev):
         nsub=8)
     counts.update({n: launches[n] for n in ("glbl_caas_f32",
                                             "limit_caas_f32")})
-    run_path(dev, "pisl qlt/mn2 f64", F64, 12,
-             {"dss_q_f64": 2, "dopri5_f64": 1}, filter="qlt", limiter="mn2",
-             nsub=8)
+    launches, *_ = run_path(
+        dev, "pisl qlt/mn2 f64", F64, 12,
+        {"dss_q_f64": 2, "dopri5_f64": 1, "qlt_tree_f64": 2}, filter="qlt",
+        limiter="mn2", nsub=8)
+    counts["qlt_tree_f64"] = launches["qlt_tree_f64"]
     # The global-only nodal filter with its relaxed-bounds prefilter (K2),
     # conserving the sphere measure; and the high-order Islet
     # configuration of the battery's prefine-0 rows (np8, interpolated
@@ -906,7 +942,8 @@ def phase_ir_paths(dev):
                               ("C: mixed isl (remap_rho dmc eh, ISL "
                                "qlt/mn2)", IR_C, 2)):
         _, step, rho, q, dt = run(label, cfg, {"dss_q_f64": 2,
-                                               "dopri5_f64": ntraj})
+                                               "dopri5_f64": ntraj,
+                                               "qlt_tree_f64": 1})
         _profile(f"path {label}", step, rho, q, 12 * dt, dt)
     return counts
 
@@ -995,9 +1032,9 @@ def phase_precision_paths(dev):
        {"glbl_caas_f32": 1, "limit_caas_f32": 1, "dss_q_f32": 2,
         "dopri5_f32": 1}, runs=2)
     ir("B': cdg dmc es qlt/mn2 d2c, f32", IR_B,
-       {"dss_q_f32": 2, "dopri5_f32": 1})
+       {"dss_q_f32": 2, "dopri5_f32": 1, "qlt_tree_f32": 1})
     ir("C': mixed isl (remap_rho dmc eh, ISL qlt/mn2), f32", IR_C,
-       {"dss_q_f32": 2, "dopri5_f32": 2})
+       {"dss_q_f32": 2, "dopri5_f32": 2, "qlt_tree_f32": 1})
 
     setup, model = _prefine_setup(dev, 30, 8, 40, dtype=F32, experiment=5,
                                   dmc="eh", nsub=8)
@@ -1561,8 +1598,8 @@ def phase_dryrun(dev):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - w0)
     got = _launches()
-    want = {n: {"limit_caas_f64": 1, "dss_q_f64": 2, "dopri5_f64": 1}.get(
-        n, 0) for n in _native.KERNELS}
+    want = {n: {"limit_caas_f64": 1, "dss_q_f64": 2, "dopri5_f64": 1,
+                "qlt_tree_f64": 2}.get(n, 0) for n in _native.KERNELS}
     if got != {n: 2 * c for n, c in want.items()}:
         raise AssertionError(f"entry(): launches over two calls {got}")
     per_call = {n: c // 2 for n, c in got.items()}
@@ -1589,9 +1626,11 @@ def phase_dryrun(dev):
     # K2/K3: strips 8/16, the single-device reference 1/2, tiles 8/16;
     # dryrun_ir's single-device caas step K1 1, K2 1, K3 2 and its sharded
     # step 8/8. The trajectory kernel: 40 f64 launches over those legs, and
-    # the measured-footprint leg's 120 integrations in f32.
+    # the measured-footprint leg's 120 integrations in f32. The QLT kernel:
+    # the single-device reference's rho and tracers (the sharded steps run
+    # the sharded QLT).
     want = {"glbl_caas_f64": 1, "limit_caas_f64": 26, "dss_q_f64": 44,
-            "dopri5_f64": 40, "dopri5_f32": 120}
+            "dopri5_f64": 40, "dopri5_f32": 120, "qlt_tree_f64": 2}
     if multi != {n: want.get(n, 0) for n in _native.KERNELS}:
         raise AssertionError(f"dry run: launches {multi}")
     diffs = report["max_diff"]
@@ -1938,7 +1977,11 @@ def main():
              **{k: stats[n][k] for k in keys})
         for n, (src, rep) in KERNELS.items()] + [
         dict(name=n, route="cuda", source=TRAJ_SRC, replaces=None,
-             **{k: stats[n][k] for k in keys}) for n in TRAJECTORY]}))
+             **{k: stats[n][k] for k in keys}) for n in TRAJECTORY] + [
+        dict(name=n, route="cuda", source=QLT_SRC, replaces=None,
+             launches=launches[n],
+             launches_dryrun={p: c[n] for p, c in dryrun_launches.items()},
+             **{k: stats[n][k] for k in keys}) for n in QLT_TREE]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

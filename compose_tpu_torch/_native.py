@@ -53,6 +53,9 @@ _ARGTYPES = {
     "dss_q": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # p, out, n, nsub, normalize, wind, table (host doubles), stream
     "dopri5": (_P, _P, _I, _I, _I, _I, _P, _P),
+    # rhom, qmin, qm, qmax, extra (or null), extra_stride, out, scratch,
+    # table, nlev, nt, nleaf, stream
+    "qlt_tree": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P),
 }
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _SIGNATURES = {f"{k}_{sfx}": v for k, v in _ARGTYPES.items()
@@ -152,8 +155,8 @@ KERNELS = {name: Kernel(name) for name in _SIGNATURES}
 
 
 def kernel(base: str, dtype) -> Kernel:
-    """The Kernel of `base` ('glbl_caas', 'limit_caas', 'dss_q', 'dopri5')
-    for float dtype `dtype`."""
+    """The Kernel of `base` ('glbl_caas', 'limit_caas', 'dss_q', 'dopri5',
+    'qlt_tree') for float dtype `dtype`."""
     if dtype not in _SUFFIX:
         raise TypeError(f"{base}: no kernel for {dtype}")
     return KERNELS[f"{base}_{_SUFFIX[dtype]}"]

@@ -8,6 +8,13 @@ gather, a vectorized node solve and an index_copy_ into the level's ids, so
 the solve is O(log ncell) rounds of tensor ops whatever the tracer count.
 No Python loop runs over nodes. Tracers are a dense leading axis.
 
+`QLT.run` takes the CUDA kernel csrc/qlt_tree.cu (both sweeps in one
+launch, bitwise equal to the level loop) for the spf filter's problem type,
+SHAPEPRESERVE with no mass-conservation preference, on CUDA tensors of f64
+or f32; every other call runs the eager level loop `QLT.run_plain`. CUDA
+DTensors reach it through `_native.on_local`. The program's trace counters
+`qlt.kernel` and `qlt.eager` count the runs of each.
+
 Problem types follow cedr::ProblemType: a bitmask of conserve=1,
 shapepreserve=2, consistent=4, nonnegative=16. Conserve takes the mass
 target from Qm_prev; consistent without shapepreserve carries the q range
@@ -16,8 +23,10 @@ global range ("dynamic range"); nonnegative solves a nonnegativity-only
 node problem.
 """
 
+import numpy as np
 import torch
 
+from .. import _native, trace
 from ..ops import local_qp
 from . import tree as tree_mod
 
@@ -212,6 +221,7 @@ class QLT:
         self.prefer = prefer_mass_con_to_bounds
         self.tree = tree_mod.build(ncells, imbalanced_tree)
         self._levels = {}
+        self._tables = {}
 
     def _levels_on(self, device):
         key = str(device)
@@ -220,13 +230,107 @@ class QLT:
                                  for lv in self.tree.levels]
         return self._levels[key]
 
+    def _kernel_table(self, device):
+        """The kernel's level table on `device` (int32): the nlev + 1
+        level offsets, then the internal nodes' ids, kid-0 ids and kid-1
+        ids (-1 when absent), level by level from the leaves up."""
+        key = str(device)
+        if key not in self._tables:
+            self._tables[key] = torch.as_tensor(
+                kernel_table(self.tree), device=device)
+        return self._tables[key]
+
     def run(self, rhom, Qm, Qm_min=None, Qm_max=None, Qm_prev=None,
             root_extra=None):
         """Redistributed leaf masses (nt, ncells). Qm_min and Qm_max are
         unused by the nonnegative types, Qm_prev by the types without
         conserve. root_extra: optional (nt,) mass added to the ROOT total
         only (the spf contract root_mass = Q_data(root) + extra_mass),
-        leaving every leaf channel untouched."""
+        leaving every leaf channel untouched. The kernel where it applies
+        (`takes_kernel`), else the eager level loop."""
+        args = (rhom, Qm, Qm_min, Qm_max, Qm_prev, root_extra)
+        if _native.has_dtensor(*args):
+            return _native.on_local(self.run, args)
+        if self.takes_kernel(Qm):
+            trace.count("qlt.kernel")
+            return self.run_kernel(rhom, Qm, Qm_min, Qm_max, root_extra)
+        trace.count("qlt.eager")
+        return self.run_plain(*args)
+
+    def takes_kernel(self, Qm):
+        """Whether `run` takes the kernel: CUDA tensors and problem type
+        SHAPEPRESERVE with no mass-conservation preference (the spf `qlt`
+        filter's contract)."""
+        return (Qm.is_cuda and self.problem_type == SHAPEPRESERVE
+                and not self.prefer)
+
+    def kernel_operands(self, rhom, Qm, Qm_min, Qm_max, root_extra=None):
+        """The kernel's operands, contiguous: [rhom, Qm_min, Qm, Qm_max]
+        and root_extra flattened (None when absent; a number becomes a
+        tensor of Qm's dtype, and one value expanded to every row stays
+        one value). Raises unless rhom is (ncells,), Qm and its bounds
+        (nt, ncells), root_extra of one value or one per row, all CUDA
+        tensors of Qm's dtype and device."""
+        if Qm.dim() != 2:
+            raise ValueError(f"Qm: expected shape (nt, {self.ncells}), got "
+                             f"{tuple(Qm.shape)}")
+        nt, dt = Qm.shape[0], Qm.dtype
+        if root_extra is not None and not isinstance(root_extra,
+                                                     torch.Tensor):
+            root_extra = torch.as_tensor(root_extra, dtype=dt,
+                                         device=Qm.device)
+        if root_extra is not None:
+            if root_extra.dim() > 1 or root_extra.numel() not in (1, nt):
+                raise ValueError(f"root_extra: expected one value or {nt}, "
+                                 f"got shape {tuple(root_extra.shape)}")
+            root_extra = root_extra.reshape(-1)
+            if root_extra.stride(0) == 0:
+                root_extra = root_extra[:1]
+        ops = [("rhom", rhom, (self.ncells,)),
+               ("Qm_min", Qm_min, (nt, self.ncells)),
+               ("Qm", Qm, (nt, self.ncells)),
+               ("Qm_max", Qm_max, (nt, self.ncells))]
+        if root_extra is not None:
+            ops.append(("root_extra", root_extra, (root_extra.numel(),)))
+        out = []
+        for name, t, shape in ops:
+            if not isinstance(t, torch.Tensor):
+                raise TypeError(f"{name}: expected a tensor, got "
+                                f"{type(t).__name__}")
+            if t.device != Qm.device:
+                raise ValueError(f"{name}: expected a tensor on {Qm.device}"
+                                 f", got {t.device}")
+            t = t.contiguous()
+            _native.require(t, name, dt, shape)
+            out.append(t)
+        return out[:4], (out[4] if root_extra is not None else None)
+
+    def run_kernel(self, rhom, Qm, Qm_min, Qm_max, root_extra=None):
+        """The kernel csrc/qlt_tree.cu: run_plain's result, bitwise, for
+        problem type SHAPEPRESERVE with no preference, on the operands
+        `kernel_operands` admits (it raises on any other). One launch on
+        the current stream; the node arrays go to a scratch of
+        5 x (nnodes - ncells) values per row."""
+        ins, extra = self.kernel_operands(rhom, Qm, Qm_min, Qm_max,
+                                          root_extra)
+        nt, nl = Qm.shape
+        kernel = _native.kernel("qlt_tree", Qm.dtype)
+        table = self._kernel_table(Qm.device)
+        nlev = len(self.tree.levels)
+        out = torch.empty((nt, nl), dtype=Qm.dtype, device=Qm.device)
+        scratch = torch.empty(nt * 5 * (self.tree.nnodes - nl),
+                              dtype=Qm.dtype, device=Qm.device)
+        stride = int(extra is not None and extra.numel() > 1)
+        kernel(*(x.data_ptr() for x in ins),
+               None if extra is None else extra.data_ptr(), stride,
+               out.data_ptr(), scratch.data_ptr(), table.data_ptr(), nlev,
+               nt, nl, stream=_native.stream_of(Qm))
+        return out
+
+    def run_plain(self, rhom, Qm, Qm_min=None, Qm_max=None, Qm_prev=None,
+                  root_extra=None):
+        """`run` as the eager level loop, for every problem type and
+        device: the kernel's plain version."""
         pt = self.problem_type
         t = self.tree
         levels = self._levels_on(Qm.device)
@@ -309,3 +413,15 @@ class QLT:
             M.index_copy_(1, lv.k0, torch.where(lv.single, Qm_node, Qm0))
             M.index_copy_(1, lv.k1_pair, Qm1[:, lv.pair])
         return M[:, :nl]
+
+
+def kernel_table(tree):
+    """csrc/qlt_tree.cu's level table of `tree` (int32 numpy): the nlev + 1
+    offsets of the levels in the node lists, then the internal nodes' ids,
+    kid-0 ids and kid-1 ids (-1 when absent), each list level by level
+    from the leaves up."""
+    sizes = [len(ids) for ids, _, _ in tree.levels]
+    off = np.concatenate([[0], np.cumsum(sizes, dtype=np.int64)])
+    cols = [np.concatenate([lv[c] for lv in tree.levels]
+                           + [np.zeros(0, np.int32)]) for c in range(3)]
+    return np.concatenate([off] + cols).astype(np.int32)

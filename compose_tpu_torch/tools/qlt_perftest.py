@@ -2,13 +2,15 @@
 test (compose_tpu's tools/qlt_perftest.py) on the port.
 
 Times the single-device QLT: tree construction and schedule analysis
-(once each, host clock), the full run, the l2r combine sweep alone, and
-the r2l residual; and with -ndev the sharded QLT (cdr/qlt_sharded.py) over
-a LocalComm of that many shards on the device: its analysis, the full run
-and the frontier-gather size. Device times come from CUDA events around
-`-nr` synchronized repetitions (the host clock on the CPU). The inputs are
-those of the JAX tool, drawn from the same numpy seed. The sharded result
-must equal the single QLT's bitwise; the exit code is 1 if it does not.
+(once each, host clock), the full run (`QLT.run`: on a card the kernel
+csrc/qlt_tree.cu, one launch), the eager level loop (`QLT.run_plain`), its
+l2r combine sweep alone, and the r2l residual; and with -ndev the sharded
+QLT (cdr/qlt_sharded.py) over a LocalComm of that many shards on the
+device: its analysis, the full run and the frontier-gather size. Device
+times come from CUDA events around `-nr` synchronized repetitions (the
+host clock on the CPU). The inputs are those of the JAX tool, drawn from
+the same numpy seed. The run must equal the eager loop bitwise, and the
+sharded result the single QLT's; the exit code is 1 if either does not.
 
     python -m compose_tpu_torch.tools.qlt_perftest [-nc 5400] [-nt 40]
         [-nr 20] [-ndev 8] [--device cuda]
@@ -74,7 +76,8 @@ def l2r_only(solver, Qm):
 
 
 def run(nc=5400, nt=40, nr=20, ndev=0, device="cuda"):
-    """Print the timers; returns {name: ms} and, with ndev, whether the
+    """Print the timers; returns {name: ms}, whether the run equals the
+    eager loop bitwise (key "kernel_bitwise") and, with ndev, whether the
     sharded QLT equals the single one bitwise (key "bitwise")."""
     dev = resolve_device(device)
     rhom, Qm, Qm_min, Qm_max = inputs(nc, nt, dev)
@@ -85,17 +88,27 @@ def run(nc=5400, nt=40, nr=20, ndev=0, device="cuda"):
     solver = qlt_mod.QLT(nc, problem_type=qlt_mod.SHAPEPRESERVE)
     solver._levels_on(dev)
     res["analyze"] = (time.perf_counter() - t0) * 1e3
+    kernel = solver.takes_kernel(Qm)
     res["qltrun"], single = rep_ms(
         lambda: solver.run(rhom, Qm, Qm_min, Qm_max), nr, dev)
+    res["qltrun_plain"], plain = rep_ms(
+        lambda: solver.run_plain(rhom, Qm, Qm_min, Qm_max), nr, dev)
+    res["kernel_bitwise"] = torch.equal(single, plain)
     res["l2r"], _ = rep_ms(lambda: l2r_only(solver, Qm), nr, dev)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"QLT perftest nc={nc} nt={nt} nr={nr} device={name}")
     print(f"  tree     {res['tree']:9.3f} ms (one-time, host)")
     print(f"  analyze  {res['analyze']:9.3f} ms (one-time, host)")
-    print(f"  qltrun   {res['qltrun']:9.3f} ms/rep")
-    print(f"  ~l2r     {res['l2r']:9.3f} ms/rep (combine sweep alone)")
-    print(f"  ~r2l     {res['qltrun'] - res['l2r']:9.3f} ms/rep (residual: "
-          f"node QPs)")
+    print(f"  qltrun   {res['qltrun']:9.3f} ms/rep ("
+          + ("the kernel, one launch" if kernel else "the eager loop")
+          + ")")
+    print(f"  eager    {res['qltrun_plain']:9.3f} ms/rep (the level loop; "
+          f"run == eager: "
+          f"{'bitwise' if res['kernel_bitwise'] else 'DIFFERENT'})")
+    print(f"  ~l2r     {res['l2r']:9.3f} ms/rep (the loop's combine sweep "
+          f"alone)")
+    print(f"  ~r2l     {res['qltrun_plain'] - res['l2r']:9.3f} ms/rep "
+          f"(the loop's residual: node QPs)")
     if ndev:
         t0 = time.perf_counter()
         sq = ShardedQLT(nc, ndev)
@@ -133,7 +146,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args(argv)
     res = run(a.nc, a.nt, a.nr, a.ndev, a.device)
-    return 0 if res.get("bitwise", True) else 1
+    return 0 if res["kernel_bitwise"] and res.get("bitwise", True) else 1
 
 
 if __name__ == "__main__":

@@ -230,14 +230,17 @@ IR_CASES = {
                             "dss_q_f64": 2, "dopri5_f64": 1}),
     "cdg_es_qlt_mn2_d2c": (dict(method="cdg", dmc="es", filter="qlt",
                                 limiter="mn2"),
-                           {"dss_q_f64": 2, "dopri5_f64": 1}),
+                           {"dss_q_f64": 2, "dopri5_f64": 1,
+                            "qlt_tree_f64": 1}),
     "ir_eh_caas_caas": (dict(method="ir", dmc="eh", filter="caas",
                              limiter="caas", d2c=False),
                         {"glbl_caas_f64": 1, "limit_caas_f64": 1,
                          "dopri5_f64": 1}),
-    # The remap's cell vertices and the ISL step's nodes: two trajectories.
+    # The remap's cell vertices and the ISL step's nodes: two trajectories;
+    # the ISL step's tracer QLT (its rho is the remap's, unfiltered).
     "mixed_isl": (dict(method="ir", dmc="eh", filter="none",
-                       limiter="none"), {"dss_q_f64": 2, "dopri5_f64": 2}),
+                       limiter="none"), {"dss_q_f64": 2, "dopri5_f64": 2,
+                                         "qlt_tree_f64": 1}),
 }
 
 
@@ -512,8 +515,8 @@ def test_dtensor_step_card(dev, one_rank):
 
 def test_entry_step_card(dev):
     # entry()'s step on the card (its default device) against the same
-    # step on the CPU; K2 once, K3 twice and the trajectory kernel once per
-    # call, K1 never.
+    # step on the CPU; K2 once, K3 twice, the trajectory kernel once and the
+    # QLT kernel twice (rho, tracers) per call, K1 never.
     from compose_tpu_torch.tools import dryrun
 
     fn, (rho, q) = dryrun.entry()
@@ -521,8 +524,8 @@ def test_entry_step_card(dev):
     before = {n: k.launches for n, k in _native.KERNELS.items()}
     out = fn(rho, q)
     got = {n: k.launches - before[n] for n, k in _native.KERNELS.items()}
-    assert got == {n: {"limit_caas_f64": 1, "dss_q_f64": 2,
-                       "dopri5_f64": 1}.get(n, 0) for n in _native.KERNELS}
+    assert got == {n: {"limit_caas_f64": 1, "dss_q_f64": 2, "dopri5_f64": 1,
+                       "qlt_tree_f64": 2}.get(n, 0) for n in _native.KERNELS}
     fn_cpu, _ = dryrun.entry(device="cpu")
     ref = fn_cpu(rho.cpu(), q.cpu())
     for a, b in zip(out, ref):
@@ -692,3 +695,197 @@ def test_dopri5_kernel_on_dtensors(dev, one_rank, dtype):
         assert k.launches == before + 1
         assert got.placements == (pl,)
         assert torch.equal(got.full_tensor(), want)
+
+
+# ---------------------------------------------------------------------------
+# The QLT tree kernel (csrc/qlt_tree.cu) against the eager level loop,
+# bitwise: the sign of zero included, NaN where both are.
+
+def _qlt_args(dev, ncell, nt, dtype, kind, seed=0):
+    from qlt_cases import qlt_case
+
+    return [x.to(dev) for x in qlt_case(ncell, nt, dtype, kind, seed)]
+
+
+def _qlt_same(a, b):
+    from qlt_cases import same_bits
+
+    return same_bits(a.cpu(), b.cpu())
+
+
+def _qlt_kernel_case(solver, rhom, Qm, lo, hi, extra):
+    k = _native.kernel("qlt_tree", Qm.dtype)
+    before = k.launches
+    got = solver.run(rhom, Qm, lo, hi, root_extra=extra)
+    assert k.launches == before + 1
+    want = solver.run_plain(rhom, Qm, lo, hi, root_extra=extra)
+    assert got.dtype == Qm.dtype and _qlt_same(got, want), (
+        solver.ncells, tuple(Qm.shape), int((got != want).sum()))
+
+
+QLT_KINDS = ["perturbed", "feasible", "infeasible", "ties"]
+
+
+@pytest.mark.parametrize("kind", QLT_KINDS)
+@pytest.mark.parametrize("ncell", [1, 2, 3, 7, 96, 1350, 5400])
+@pytest.mark.parametrize("nt", [1, 40])
+@pytest.mark.parametrize("dtype", [torch.float64, F32], ids=["f64", "f32"])
+def test_qlt_tree_kernel(dev, dtype, nt, ncell, kind):
+    # Odd counts make single-kid nodes; "feasible" passes every node's
+    # masses through (no_change), "infeasible" takes the corners, "ties"
+    # ties the wall crossings and makes signed zeros. A zero, a per-row
+    # and a shared root extra, and none.
+    from compose_tpu_torch.cdr import qlt
+
+    rhom, Qm, lo, hi, extra = _qlt_args(dev, ncell, nt, dtype, kind,
+                                        seed=ncell + nt)
+    solver = qlt.QLT(ncell)
+    for ex in (extra, torch.zeros_like(extra), extra[:1], None):
+        _qlt_kernel_case(solver, rhom, Qm, lo, hi, ex)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, F32], ids=["f64", "f32"])
+def test_qlt_tree_kernel_many_seeds(dev, dtype):
+    # The benchmark's shape, 40 tracers of 5400 cells, over 30 draws.
+    from compose_tpu_torch.cdr import qlt
+
+    solver = qlt.QLT(5400)
+    for seed in range(30):
+        kind = QLT_KINDS[seed % len(QLT_KINDS)]
+        _qlt_kernel_case(solver, *_qlt_args(dev, 5400, 40, dtype, kind,
+                                            seed=1000 + seed))
+
+
+def test_qlt_tree_kernel_strided_inputs(dev):
+    # Transposed masses and bounds, a strided density, an expanded extra:
+    # the kernel reads contiguous copies.
+    from compose_tpu_torch.cdr import qlt
+
+    rhom, Qm, lo, hi, extra = _qlt_args(dev, 1350, 40, torch.float64,
+                                        "perturbed")
+    args = [x.t().contiguous().t() for x in (Qm, lo, hi)]
+    assert not args[0].is_contiguous()
+    r2 = torch.stack([rhom, rhom]).t().reshape(-1)[::2]
+    assert not r2.is_contiguous()
+    solver = qlt.QLT(1350)
+    for ex in (extra, extra[3].expand(40), extra[::1]):
+        _qlt_kernel_case(solver, r2, *args, ex)
+
+
+def test_qlt_tree_kernel_imbalanced_tree(dev):
+    from compose_tpu_torch.cdr import qlt
+
+    solver = qlt.QLT(1000, imbalanced_tree=True)
+    for dtype in (torch.float64, F32):
+        _qlt_kernel_case(solver, *_qlt_args(dev, 1000, 7, dtype,
+                                            "perturbed"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, F32], ids=["f64", "f32"])
+def test_qlt_tree_kernel_on_dtensors(dev, one_rank, dtype):
+    # CUDA DTensors reach the kernel through local_map, never the eager
+    # loop; the result is replicated.
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from compose_tpu_torch.cdr import qlt
+
+    rhom, Qm, lo, hi, extra = _qlt_args(dev, 96, 4, dtype, "perturbed")
+    solver = qlt.QLT(96)
+    want = solver.run_plain(rhom, Qm, lo, hi, root_extra=extra)
+    k = _native.kernel("qlt_tree", dtype)
+    for pl in (Shard(1), Replicate()):
+        d = [distribute_tensor(x, one_rank, [p]) for x, p in (
+            (rhom, Shard(0) if pl != Replicate() else pl), (Qm, pl),
+            (lo, pl), (hi, pl), (extra, Replicate()))]
+        before = k.launches
+        got = solver.run(*d[:4], root_extra=d[4])
+        assert k.launches == before + 1
+        assert _qlt_same(got.full_tensor(), want)
+
+
+@pytest.mark.parametrize("ncell,nshards", [(5400, 8), (5400, 4), (1350, 16),
+                                           (96, 3)])
+def test_sharded_qlt_equals_the_kernel(dev, ncell, nshards):
+    # ShardedQLT keeps its own schedule (eager levels per shard and the
+    # frontier gather); its result is the kernel's, bitwise.
+    from compose_tpu_torch.cdr import qlt
+    from compose_tpu_torch.cdr.qlt_sharded import ShardedQLT
+    from compose_tpu_torch.parallel.comm import LocalComm
+
+    rhom, Qm, lo, hi, extra = _qlt_args(dev, ncell, 40, torch.float64,
+                                        "perturbed")
+    single = qlt.QLT(ncell).run(rhom, Qm, lo, hi, root_extra=extra)
+    sq = ShardedQLT(ncell, nshards)
+    comm = LocalComm(nshards, dev)
+    blk = [sq.scatter_leaves(x).reshape(40, nshards, -1) for x in
+           (Qm, lo, hi)]
+    rb = sq.scatter_leaves(rhom, fill=1.0).reshape(nshards, -1)
+    out = comm.run(lambda c: sq.run(c, rb[c.rank],
+                                    *(b[:, c.rank] for b in blk),
+                                    root_extra=extra))
+    assert _qlt_same(sq.gather_leaves(torch.cat(out, -1)), single)
+
+
+def test_qlt_step_bitwise_vs_eager(dev, monkeypatch):
+    # One ne30 step of the QLT cell's options (4 tracers) with the kernel,
+    # then with the eager loop: bitwise; the tracer counts two kernel runs
+    # (rho, tracers), then two eager runs.
+    from compose_tpu_torch import driver, trace
+    from compose_tpu_torch.cdr import qlt
+    from compose_tpu_torch.transport import gallery
+    from compose_tpu_torch.transport.isl import IslConfig, IslTransport
+
+    mesh = cubed_sphere.build(30, 4, device=dev)
+    model = IslTransport(mesh, gallery.create_wind("divergent"),
+                         IslConfig(ne=30, nsub=8, **CELL_OPTIONS["isl_qlt"]))
+    rho = torch.ones((mesh.ncell, 16), dtype=torch.float64, device=dev)
+    q = driver.init_tracers(mesh, ["gaussianhills", "slottedcylinders",
+                                   "cosinebells", "xyztrig"])
+    trace.reset()
+    trace.enable()
+    try:
+        out = model.step(rho, q, 36 * DT, 37 * DT)
+        on = dict(trace.summary()["counters"])
+        trace.reset()
+        monkeypatch.setattr(qlt.QLT, "takes_kernel", lambda *a: False)
+        ref = model.step(rho, q, 36 * DT, 37 * DT)
+        off = dict(trace.summary()["counters"])
+    finally:
+        trace.disable()
+        trace.reset()
+    assert on.get("qlt.kernel") == 2 and "qlt.eager" not in on
+    assert off.get("qlt.eager") == 2 and "qlt.kernel" not in off
+    assert _qlt_same(out[0], ref[0]) and _qlt_same(out[1], ref[1])
+
+
+def test_qlt_tree_kernel_takes_or_refuses(dev):
+    # On the card the spf type always takes the kernel: a number for the
+    # extra is taken (bitwise to the loop), an operand of another dtype or
+    # device raises; nothing falls back to the eager loop.
+    from compose_tpu_torch.cdr import qlt
+
+    rhom, Qm, lo, hi, extra = _qlt_args(dev, 96, 4, torch.float64,
+                                        "perturbed")
+    solver = qlt.QLT(96)
+    _qlt_kernel_case(solver, rhom, Qm, lo, hi, 0.5)
+    k = _native.kernel("qlt_tree", torch.float64)
+    before = k.launches
+    for args, err in (((rhom, Qm, lo, hi, extra.float()), TypeError),
+                      ((rhom, Qm, lo, hi, extra.cpu()), ValueError),
+                      ((rhom.cpu(), Qm, lo, hi, extra), ValueError),
+                      ((rhom, Qm.half(), lo, hi, extra), TypeError)):
+        with pytest.raises(err):
+            solver.run(*args[:4], root_extra=args[4])
+    assert k.launches == before
+
+
+def test_qlt_tree_kernel_refuses_bad_table(dev):
+    from compose_tpu_torch.cdr import qlt
+
+    rhom, Qm, lo, hi, extra = _qlt_args(dev, 96, 2, torch.float64,
+                                        "perturbed")
+    k = _native.kernel("qlt_tree", torch.float64)
+    table = qlt.QLT(96)._kernel_table(dev)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        k(rhom.data_ptr(), lo.data_ptr(), Qm.data_ptr(), hi.data_ptr(),
+          None, 0, Qm.data_ptr(), Qm.data_ptr(), table.data_ptr(), 7, 2, 0,
+          stream=_native.stream_of(Qm))

@@ -120,11 +120,13 @@ def test_qlt_perftest_sharded_bitwise(capsys):
     assert qlt_perftest.main(["-nc", "96", "-nt", "4", "-nr", "2", "-ndev",
                               "4", "--device", "cpu"]) == 0
     res = qlt_perftest.run(96, 4, 2, 4, "cpu")
-    assert res["bitwise"] and res["frontier"] > 0
-    for k in ("tree", "analyze", "qltrun", "l2r", "sharded_analyze",
-              "sharded_qltrun"):
+    assert res["bitwise"] and res["kernel_bitwise"] and res["frontier"] > 0
+    for k in ("tree", "analyze", "qltrun", "qltrun_plain", "l2r",
+              "sharded_analyze", "sharded_qltrun"):
         assert res[k] > 0, k
-    assert "sharded == single: bitwise" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "sharded == single: bitwise" in out
+    assert "(the eager loop)" in out and "run == eager: bitwise" in out
 
 
 def test_profile_step_table(capsys):
