@@ -24,8 +24,15 @@ Phases (any failure raises, so the exit code is nonzero):
      its bound counted in operations; then the QLT tree kernel
      (csrc/qlt_tree.cu) against the eager level loop at (1|40, 5400) with
      masses off their bounds and a nonzero root extra, bitwise, timed,
-     its bound in bytes; the paths below check the launches of every
-     kernel, the trajectory and QLT kernels' included;
+     its bound in bytes; then the cell location kernel (csrc/locate.cu)
+     against the eager chain (IslTransport._locate_plain) on one ne30
+     step's departure points, bitwise, in each route's geometry and
+     weights (f64 -> f64; f32 -> f64, also on strip shard 0 of 4's
+     nodes; f32 -> f32) and its (ci, a, b) entry, timed, its bound in
+     operations; the paths below check the launches of every kernel, the
+     trajectory, QLT and cell location kernels' included (one cell
+     location per ISL step: the np4 weights, or (a, b) at np8; two per
+     prefine step, none in the IR steps);
   3. small references (ne4 np4, 4 tracers, 3 steps: caas/caas and qlt/mn2
      in f64, qlt/mn2 in f32; ne3 np6 qlt/mn2 and ne3 np8 caas-node/caas
      dmc es in f64; the cell-integrated paths' configs at ne3 and a ne2
@@ -158,6 +165,10 @@ TRAJECTORY = ("dopri5_f64", "dopri5_f32")
 # kernel: the JAX package leaves the level loop to XLA).
 QLT_SRC = "compose_tpu_torch/csrc/qlt_tree.cu"
 QLT_TREE = ("qlt_tree_f64", "qlt_tree_f32")
+# The cell location kernel's C entries (csrc/locate.cu; it replaces no TPU
+# kernel: the JAX package leaves cell location to XLA).
+LOCATE_SRC = "compose_tpu_torch/csrc/locate.cu"
+LOCATE = ("locate_f64", "locate_f32", "locate_ab_f64", "locate_ab_f32")
 # The H100 SXM's published peaks (NVIDIA data sheet): HBM3 3.35 TB/s;
 # 67 TFLOP/s f32 and 34 TFLOP/s f64 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -500,6 +511,100 @@ def phase_kernels(dev, stats, dtype, ne=30):
         record(name, 0.0, lambda a=args: solver.run(*a[:4], root_extra=a[4]),
                lambda a=args: solver.run_plain(*a[:4], root_extra=a[4]),
                args, out, 0, (rows, ncell), summary=rows == nt, held="")
+
+    _locate_rows(dev, dtype, record, ne, mesh, shard)
+
+
+def locate_instr(dtype, its: int, weights: bool) -> int:
+    """Instructions per point of csrc/locate.cu, counted from its source:
+    the index (63 loads, compares, selects, integer and float operations,
+    2 divisions, 2 atan), per Newton iteration 193 adds, multiplies,
+    compares and selects, 19 divisions and 3 square roots, and the np4
+    weights (2 x 53 operations and 11 divisions, 16 products). A division
+    or square root is its Newton sequence, 10 instructions in f64 (8 and 6
+    in f32); atan its range reduction (a division) and a polynomial of 20
+    FMAs in f64 (10 in f32)."""
+    div, sqrt, atan = (10, 10, 30) if dtype == F64 else (8, 6, 18)
+    n = 63 + 2 * div + 2 * atan + its * (193 + 19 * div + 3 * sqrt)
+    return n + (122 + 22 * div if weights else 0)
+
+
+def _same_bits(a, b, what):
+    ity = {F64: torch.int64, F32: torch.int32}.get(a.dtype)
+    if a.dtype != b.dtype or not torch.equal(
+            a.view(ity) if ity else a, b.view(ity) if ity else b):
+        raise AssertionError(f"{what}: kernel != plain")
+
+
+def _locate_rows(dev, dtype, record, ne, mesh, shard):
+    """Cell location (csrc/locate.cu) on one ne30 step's departure points:
+    IslTransport._locate against _locate_plain, bit for bit, in each
+    route's geometry and weights: f64 -> f64 (the QLT cell) in the f64
+    phase; f32 -> f64 (the CAAS cell, also on strip shard 0 of 4's nodes,
+    the four-card cell's per-rank share) and f32 -> f32 (x64 off) in the
+    f32 phase; then the (ci, a, b) entry on the first route's points
+    against cubed_sphere.locate and sqr.sphere_to_ref. Bound: operations
+    (locate_instr)."""
+    from compose_tpu_torch.mesh import cubed_sphere
+    from compose_tpu_torch.ops import sqr
+    from compose_tpu_torch.transport import gallery, locate
+    from compose_tpu_torch.transport.isl import IslConfig, IslTransport
+
+    sfx = {F64: "f64", F32: "f32"}[dtype]
+    name = f"locate_{sfx}"
+    wind = gallery.create_wind("divergent")
+    dt = 86400.0 * 12 / 120
+    routes = [(mesh, "f64")] if dtype == F64 else [
+        (cubed_sphere.build(ne, 4, device=dev), "f32"), (mesh, "f64")]
+    first = None
+    for r, (mr, geom) in enumerate(routes):
+        model = IslTransport(mr, wind, IslConfig(ne=ne, nsub=8,
+                                                 geom_dtype=geom))
+        loc = model.locator
+        corners = loc.constants(dev)[0]
+        rows = [None] + ([shard] if geom == "f32" else [])
+        for nodes in rows:
+            p = model._departure_points(36 * dt, 37 * dt,
+                                        nodes).contiguous()
+            first = first or (model, p)
+            before = _launches([name])[name]
+            ci, w = model._locate(p)
+            ci0, w0 = model._locate_plain(p)
+            torch.cuda.synchronize()
+            if _launches([name])[name] != before + 1:
+                raise AssertionError(f"{name}: not one launch per call")
+            what = f"{name} {tuple(p.shape)} -> {str(w.dtype)[6:]}"
+            _same_bits(ci, ci0, what)
+            _same_bits(w, w0, what)
+            record(name, 0.0, lambda p=p, m=model: m._locate(p),
+                   lambda p=p, m=model: m._locate_plain(p),
+                   [p, corners, ci], w,
+                   2 * locate_instr(dtype, loc.max_its, True) * len(p),
+                   tuple(p.shape), summary=r == 0 and nodes is None,
+                   held=f", weights {str(w.dtype)[6:]}")
+    model, p = first
+    loc = model.locator
+    name = f"locate_ab_{sfx}"
+    corners = loc.constants(dev)[0]
+    args = (p, corners, ne, loc.max_its, locate.locate_table(dtype, loc.tol))
+
+    def plain(p=p, m=model.mesh):
+        ci, a0, b0 = cubed_sphere.locate(m, p)
+        return (ci,) + sqr.sphere_to_ref(m.corners[ci].to(p.dtype), p,
+                                         max_its=loc.max_its, tol=loc.tol,
+                                         a0=a0, b0=b0)
+    before = _launches([name])[name]
+    out = locate.locate_cells(*args)
+    ref = plain()
+    torch.cuda.synchronize()
+    if _launches([name])[name] != before + 1:
+        raise AssertionError(f"{name}: not one launch per call")
+    for a, b in zip(out, ref):
+        _same_bits(a, b, f"{name} {tuple(p.shape)}")
+    record(name, 0.0, lambda a=args: locate.locate_cells(*a), plain,
+           [p, corners, out[0], out[1]], out[2],
+           2 * locate_instr(dtype, loc.max_its, False) * len(p),
+           tuple(p.shape), held="")
 
 
 def _model(dev, ne, nt, dtype, np_=4, basis="GllNodal", **cfg):
@@ -865,14 +970,15 @@ def phase_paths(dev):
     launches, *_ = run_path(
         dev, "flagship pisl caas/caas (f32 geometry+interp, f64 CDR)", F64,
         120, {"glbl_caas_f64": 2, "limit_caas_f64": 1, "dss_q_f64": 2,
-              "dopri5_f32": 1}, filter="caas", limiter="caas", nsub=8,
-        geom_dtype="f32", interp_dtype="f32")
+              "dopri5_f32": 1, "locate_f32": 1}, filter="caas",
+        limiter="caas", nsub=8, geom_dtype="f32", interp_dtype="f32")
     counts.update({n: launches[n] for n in ("glbl_caas_f64",
-                                            "limit_caas_f64", "dss_q_f64")})
+                                            "limit_caas_f64", "dss_q_f64")
+                   + LOCATE})
     launches, model, rho, q, _ = run_path(
         dev, "single-precision pisl qlt/mn2 (x64 off)", F32, 120,
-        {"dss_q_f32": 2, "dopri5_f32": 1, "qlt_tree_f32": 2}, mass_tol=1e-5,
-        filter="qlt", limiter="mn2", nsub=8)
+        {"dss_q_f32": 2, "dopri5_f32": 1, "locate_f32": 1, "qlt_tree_f32": 2},
+        mass_tol=1e-5, filter="qlt", limiter="mn2", nsub=8)
     counts.update({n: launches[n] for n in ("dss_q_f32", "qlt_tree_f32")})
     # Where the f32 step's time goes, and the mn2 limiter's Newton cost:
     # its QP at the step's shapes, timed at 25 and at 50 iterations (the
@@ -890,15 +996,16 @@ def phase_paths(dev):
     launches, *_ = run_path(
         dev, "single-precision pisl caas/caas (x64 off)", F32, 12,
         {"glbl_caas_f32": 2, "limit_caas_f32": 1, "dss_q_f32": 2,
-         "dopri5_f32": 1}, mass_tol=1e-5, filter="caas", limiter="caas",
-        nsub=8)
+         "dopri5_f32": 1, "locate_f32": 1}, mass_tol=1e-5, filter="caas",
+        limiter="caas", nsub=8)
     counts.update({n: launches[n] for n in ("glbl_caas_f32",
                                             "limit_caas_f32")})
     launches, *_ = run_path(
         dev, "pisl qlt/mn2 f64", F64, 12,
-        {"dss_q_f64": 2, "dopri5_f64": 1, "qlt_tree_f64": 2}, filter="qlt",
-        limiter="mn2", nsub=8)
+        {"dss_q_f64": 2, "dopri5_f64": 1, "locate_f64": 1, "qlt_tree_f64": 2},
+        filter="qlt", limiter="mn2", nsub=8)
     counts["qlt_tree_f64"] = launches["qlt_tree_f64"]
+    counts["locate_f64"] = launches["locate_f64"]
     # The global-only nodal filter with its relaxed-bounds prefilter (K2),
     # conserving the sphere measure; and the high-order Islet
     # configuration of the battery's prefine-0 rows (np8, interpolated
@@ -906,15 +1013,16 @@ def phase_paths(dev):
     # np2 64.
     _, model, rho, q, _ = run_path(
         dev, "pisl caas-node/caas dmc es (f64)", F64, 12,
-        {"limit_caas_f64": 1, "dss_q_f64": 2, "dopri5_f64": 1},
-        measure="sphere",
+        {"limit_caas_f64": 1, "dss_q_f64": 2, "dopri5_f64": 1,
+         "locate_f64": 1}, measure="sphere",
         filter="caas-node", limiter="caas", dmc="es", nsub=8)
     _log_phases("caas-node/caas dmc es", model, rho, q)
-    _, model, rho, q, _ = run_path(
+    launches, model, rho, q, _ = run_path(
         dev, "pisl caas/caas np8 interp dmc eh (f64)", F64, 12,
         {"glbl_caas_f64": 2, "limit_caas_f64": 1, "dss_q_f64": 2,
-         "dopri5_f64": 1}, ne=15, np_=8, filter="caas", limiter="caas",
-        dmc="eh", timeint="interp", nsub=8)
+         "dopri5_f64": 1, "locate_ab_f64": 1}, ne=15, np_=8, filter="caas",
+        limiter="caas", dmc="eh", timeint="interp", nsub=8)
+    counts["locate_ab_f64"] = launches["locate_ab_f64"]
     _log_phases("np8 interp caas/caas", model, rho, q)
     return counts
 
@@ -937,12 +1045,14 @@ def phase_ir_paths(dev):
         raise AssertionError("path A: two runs differ")
     log("path A: two runs bitwise equal")
     _profile(f"path {label}", step, rho, q, 12 * dt, dt)
-    # C integrates the remap's cell vertices and the ISL step's nodes.
+    # C integrates the remap's cell vertices and the ISL step's nodes, and
+    # locates the latter.
     for label, cfg, ntraj in (("B: cdg dmc es qlt/mn2 d2c", IR_B, 1),
                               ("C: mixed isl (remap_rho dmc eh, ISL "
                                "qlt/mn2)", IR_C, 2)):
         _, step, rho, q, dt = run(label, cfg, {"dss_q_f64": 2,
                                                "dopri5_f64": ntraj,
+                                               "locate_f64": ntraj - 1,
                                                "qlt_tree_f64": 1})
         _profile(f"path {label}", step, rho, q, 12 * dt, dt)
     return counts
@@ -965,7 +1075,7 @@ def phase_prefine_pg(dev):
     p5, step, rho, q, dt = run_path(
         dev, f"path {label}", F64, 12,
         {"glbl_caas_f64": 2, "limit_caas_f64": 2, "dss_q_f64": 1,
-         "dopri5_f64": 1},
+         "dopri5_f64": 1, "locate_f64": 1, "locate_ab_f64": 1},
         period=120, setup=setup, first_extra={"limit_caas_f64": 1},
         dofs=(mf.ncell * mf.np2 * 40, " (the fine np8 grid's DOFs)"))
     _profile(f"path {label}", step, rho, q, 12 * dt, dt)
@@ -985,7 +1095,7 @@ def phase_prefine_pg(dev):
     pg, step, rho, q, dt = run_path(
         dev, f"path {label}", F64, 12,
         {"glbl_caas_f64": 2, "limit_caas_f64": 1, "dss_q_f64": 2,
-         "dopri5_f64": 1},
+         "dopri5_f64": 1, "locate_f64": 1},
         period=120, setup=setup, observed=slice(2, None),
         step_check=toychem_range)
     from compose_tpu_torch import driver
@@ -1034,7 +1144,8 @@ def phase_precision_paths(dev):
     ir("B': cdg dmc es qlt/mn2 d2c, f32", IR_B,
        {"dss_q_f32": 2, "dopri5_f32": 1, "qlt_tree_f32": 1})
     ir("C': mixed isl (remap_rho dmc eh, ISL qlt/mn2), f32", IR_C,
-       {"dss_q_f32": 2, "dopri5_f32": 2, "qlt_tree_f32": 1})
+       {"dss_q_f32": 2, "dopri5_f32": 2, "locate_f32": 1,
+        "qlt_tree_f32": 1})
 
     setup, model = _prefine_setup(dev, 30, 8, 40, dtype=F32, experiment=5,
                                   dmc="eh", nsub=8)
@@ -1043,7 +1154,7 @@ def phase_precision_paths(dev):
     out["P5'"], step, rho, q, dt = run_path(
         dev, f"path {label}", F32, 12,
         {"glbl_caas_f32": 2, "limit_caas_f32": 2, "dss_q_f32": 1,
-         "dopri5_f32": 1},
+         "dopri5_f32": 1, "locate_f32": 1, "locate_ab_f32": 1},
         period=120, setup=setup, first_extra={"limit_caas_f32": 1},
         dofs=(mf.ncell * mf.np2 * 40, " (the fine np8 grid's DOFs)"), **f32)
     _profile(f"path {label}", step, rho, q, 12 * dt, dt)
@@ -1062,7 +1173,7 @@ def phase_precision_paths(dev):
     out["PG'"], step, rho, q, dt = run_path(
         dev, f"path {label}", F32, 12,
         {"glbl_caas_f32": 2, "limit_caas_f32": 1, "dss_q_f32": 2,
-         "dopri5_f32": 1},
+         "dopri5_f32": 1, "locate_f32": 1},
         period=120, setup=setup, observed=slice(2, None),
         step_check=toychem_range, **f32)
     _profile(f"path {label}", step, rho, q, 12 * dt, dt)
@@ -1072,7 +1183,8 @@ def phase_precision_paths(dev):
         counts, model, rho, q, dt = run_path(
             dev, label, F64, 12,
             {"glbl_caas_f64": 2, "limit_caas_f64": 1, "dss_q_f64": 2,
-             f"dopri5_{geom}": 1}, period=120, filter="caas",
+             f"dopri5_{geom}": 1, f"locate_{geom}": 1}, period=120,
+            filter="caas",
             limiter="caas", nsub=8, geom_dtype=geom, interp_dtype=interp)
         _profile(label, model.step, rho, q, 12 * dt, dt)
         out[f"geom{geom}-interp{interp}"] = counts
@@ -1226,19 +1338,21 @@ def phase_sharded(dev, stats):
             f"slots")
         got = _sharded_run(f"sharded flagship pisl caas/caas, 8 shards, "
                            f"{label}", sh, ref, times,
-                           {K2: 8, K3: 16, "dopri5_f32": 8},
-                           first_extra={"dopri5_f32": 1})
+                           {K2: 8, K3: 16, "dopri5_f32": 8,
+                            "locate_f32": 8},
+                           first_extra={"dopri5_f32": 1, "locate_f32": 1})
         flag = {n: flag[n] + got[n] for n in KERNELS}
 
-    for filt, lim, want in (("qlt", "mn2", {K3: 32, "dopri5_f32": 16}),
+    loc16 = {"dopri5_f32": 16, "locate_f32": 16}
+    for filt, lim, want in (("qlt", "mn2", {K3: 32, **loc16}),
                             ("caas-node", "caas",
-                             {K2: 16, K3: 32, "dopri5_f32": 16})):
+                             {K2: 16, K3: 32, **loc16})):
         _, m16, rho, q = _model(dev, 30, nt, F64, filter=filt, limiter=lim,
                                 nsub=8, geom_dtype="f32", interp_dtype="f32")
         ref16 = _ref_states(m16.step, rho, q, times[:3])
         _sharded_run(f"sharded ne30 over 16 (ragged) {filt}/{lim}",
                      ShardedIsl(m16, 16), ref16, times[:3], want,
-                     first_extra={"dopri5_f32": 1})
+                     first_extra={"dopri5_f32": 1, "locate_f32": 1})
 
     # ShardedIr, path A's config: projection leg (no CDR, no DSS) and the
     # full step, held as the JAX package's dryrun_ir holds them (bitwise;
@@ -1541,7 +1655,7 @@ def phase_entry_points(dev):
                                     "DTensor flagship (sharded_step), NCCL")
             launches = res["launches"]
             want = {"glbl_caas_f64": 2, "limit_caas_f64": 1, "dss_q_f64": 2,
-                    "dopri5_f32": 1}
+                    "dopri5_f32": 1, "locate_f32": 1}
             expect = {n: want.get(n, 0) * 3 for n in _native.KERNELS}
             if launches != expect:
                 raise AssertionError(f"DTensor flagship: launches {launches}"
@@ -1599,7 +1713,8 @@ def phase_dryrun(dev):
         secs.append(time.perf_counter() - w0)
     got = _launches()
     want = {n: {"limit_caas_f64": 1, "dss_q_f64": 2, "dopri5_f64": 1,
-                "qlt_tree_f64": 2}.get(n, 0) for n in _native.KERNELS}
+                "locate_f64": 1, "qlt_tree_f64": 2}.get(n, 0)
+            for n in _native.KERNELS}
     if got != {n: 2 * c for n, c in want.items()}:
         raise AssertionError(f"entry(): launches over two calls {got}")
     per_call = {n: c // 2 for n, c in got.items()}
@@ -1628,9 +1743,13 @@ def phase_dryrun(dev):
     # step 8/8. The trajectory kernel: 40 f64 launches over those legs, and
     # the measured-footprint leg's 120 integrations in f32. The QLT kernel:
     # the single-device reference's rho and tracers (the sharded steps run
-    # the sharded QLT).
+    # the sharded QLT). Cell location: the ISL legs' 20 departure
+    # computations (strips and tiles 8 shards and a coverage check each,
+    # the dry run's coverage check, the single-device reference) and the
+    # measured leg's 120.
     want = {"glbl_caas_f64": 1, "limit_caas_f64": 26, "dss_q_f64": 44,
-            "dopri5_f64": 40, "dopri5_f32": 120, "qlt_tree_f64": 2}
+            "dopri5_f64": 40, "dopri5_f32": 120, "locate_f64": 20,
+            "locate_f32": 120, "qlt_tree_f64": 2}
     if multi != {n: want.get(n, 0) for n in _native.KERNELS}:
         raise AssertionError(f"dry run: launches {multi}")
     diffs = report["max_diff"]
@@ -1981,7 +2100,12 @@ def main():
         dict(name=n, route="cuda", source=QLT_SRC, replaces=None,
              launches=launches[n],
              launches_dryrun={p: c[n] for p, c in dryrun_launches.items()},
-             **{k: stats[n][k] for k in keys}) for n in QLT_TREE]}))
+             **{k: stats[n][k] for k in keys}) for n in QLT_TREE] + [
+        dict(name=n, route="cuda", source=LOCATE_SRC, replaces=None,
+             launches=launches[n], launches_p5=p5_launches[n],
+             launches_precision={p: c[n] for p, c in prec_launches.items()},
+             launches_dryrun={p: c[n] for p, c in dryrun_launches.items()},
+             **{k: stats[n][k] for k in keys}) for n in LOCATE]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -56,6 +56,10 @@ _ARGTYPES = {
     # rhom, qmin, qm, qmax, extra (or null), extra_stride, out, scratch,
     # table, nlev, nt, nleaf, stream
     "qlt_tree": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P),
+    # p_idx (the points the index reads), p, corners, ci, w (or a), b (or
+    # null), n, ne, max_its, wide (w in f64), table (host doubles), stream
+    "locate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "locate_ab": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
 }
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _SIGNATURES = {f"{k}_{sfx}": v for k, v in _ARGTYPES.items()
@@ -156,7 +160,7 @@ KERNELS = {name: Kernel(name) for name in _SIGNATURES}
 
 def kernel(base: str, dtype) -> Kernel:
     """The Kernel of `base` ('glbl_caas', 'limit_caas', 'dss_q', 'dopri5',
-    'qlt_tree') for float dtype `dtype`."""
+    'qlt_tree', 'locate', 'locate_ab') for float dtype `dtype`."""
     if dtype not in _SUFFIX:
         raise TypeError(f"{base}: no kernel for {dtype}")
     return KERNELS[f"{base}_{_SUFFIX[dtype]}"]

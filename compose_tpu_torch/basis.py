@@ -409,6 +409,15 @@ class IsletGllOffsetNodal(GLL):
         return _regionwise_eval(self.x, self._subsets(), x)
 
 
+def np4_subgrid_nodes(bas):
+    """The nodes `bas.eval` hands to `_np4_subgrid_eval` (the Islet GLL
+    bases at np 4), or None where its eval is another function."""
+    if getattr(bas, "np", None) == 4 \
+            and type(bas).eval is IsletGllOffsetNodal.eval:
+        return bas.x
+    return None
+
+
 class IsletGllNodal(IsletGllOffsetNodal):
     """islet::GllNodal: GllOffsetNodal with free node subsets at np 6 and 9
     and its own weights. The default ISL basis."""

@@ -11,6 +11,9 @@ import torch
 
 from . import sphere
 
+# sphere_to_ref's default Newton tolerance: 100 eps_f64.
+TOL = 1e2 * torch.finfo(torch.float64).eps
+
 
 def _shape_fns(a, b):
     qtr = 0.25
@@ -80,7 +83,7 @@ def sphere_to_ref(corners, q, max_its: int = 10, tol: float = None,
     """Invert ref_to_sphere by `max_its` masked Newton iterations from the
     warm start (a0, b0) (zeros if not given). Returns (a, b)."""
     if tol is None:
-        tol = 1e2 * torch.finfo(torch.float64).eps
+        tol = TOL
     tol2 = tol * tol
     a = torch.zeros(q.shape[:-1], dtype=q.dtype, device=q.device) \
         if a0 is None else a0

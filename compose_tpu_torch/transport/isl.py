@@ -44,18 +44,22 @@ import dataclasses
 import numpy as np
 import torch
 
-from .. import basis as basis_mod, trace
+from .. import _native, basis as basis_mod, trace
 from ..config import F32
 from ..mesh import cubed_sphere
 from ..ops import local_qp, sphere, sqr
 from ..ops.reduce import bfb_sum, bfb_sum_cells
 from . import dss, limiter as limiter_mod, spf, timeint
 from .fit_extremum import FitExtremum
+from .locate import CellLocator, basis_weights
 
 _FILTERS = ("qlt", "mn2", "caas", "caas-node", "none")
 _LIMITERS = ("mn2", "caas", "caags", "qlt", "none")
 _TIMEINTS = ("exact", "interp", "line", "interpline")
 _DTYPES = ("f64", "f32")
+# The Newton tolerance of the departure points' inverse map in f32
+# geometry (else sqr.sphere_to_ref's default, sqr.TOL).
+_TOL_F32 = 1e1 * float(torch.finfo(F32).eps)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +123,12 @@ class IslTransport:
         if config.timeint in ("interp", "interpline") \
                 and config.v_np < config.np_:
             self._init_velocity_grid()
+        # Cell location's kernel operands: the Newton's iterations and
+        # tolerance are _locate_plain's.
+        f32 = config.geom_dtype == "f32"
+        self.locator = CellLocator(
+            mesh, self.basis, F32 if f32 else self.real, 3 if f32 else 4,
+            _TOL_F32 if f32 else sqr.TOL, self.real)
 
     def _init_velocity_grid(self):
         """The coarse np=v_np GLL velocity grid (with the fine mesh's
@@ -189,7 +199,23 @@ class IslTransport:
 
     def _locate(self, dep):
         """Each departure point's cell (cell location, then the Newton
-        inverse to reference coordinates) and its basis weights."""
+        inverse to reference coordinates) and its basis weights: the kernel
+        csrc/locate.cu (`self.locator`) for CUDA points on a uniform mesh
+        (CUDA DTensors through `_native.on_local`), else the eager chain
+        `_locate_plain`. The program's trace counters `locate.kernel` and
+        `locate.eager` count the calls of each."""
+        m = self.mesh
+        if not dep.is_cuda or m.nonuni or m.is_subcell:
+            trace.count("locate.eager")
+            return self._locate_plain(dep)
+        if _native.has_dtensor(dep):
+            return _native.on_local(self._locate, (dep,), n_out=2)
+        trace.count("locate.kernel")
+        return self.locator(dep.contiguous())
+
+    def _locate_plain(self, dep):
+        """`_locate` as the eager chain of PyTorch ops, for any mesh and
+        device: the kernel's plain version."""
         m, cfg = self.mesh, self.config
         if m.nonuni:
             # The nonuniform mesh's locate converges the Newton itself.
@@ -199,15 +225,12 @@ class IslTransport:
             corners = m.corners[ci]
             if cfg.geom_dtype == "f32":
                 corners = corners.to(F32)
-                tol = 1e1 * float(torch.finfo(F32).eps)
-                a, b = sqr.sphere_to_ref(corners, dep, max_its=3, tol=tol,
-                                         a0=a0, b0=b0)
+                a, b = sqr.sphere_to_ref(corners, dep, max_its=3,
+                                         tol=_TOL_F32, a0=a0, b0=b0)
             else:
                 a, b = sqr.sphere_to_ref(corners, dep, max_its=4, a0=a0,
                                          b0=b0)
-        va = self.basis.eval(a)
-        vb = self.basis.eval(b)
-        w = (vb[:, :, None] * va[:, None, :]).reshape(-1, m.np2)
+        w = basis_weights(self.basis, a, b, m.np2)
         # f32 weights widen to the working type; dep stays f32 (the
         # departure Jacobian runs in f32 and its ratio is widened).
         return ci, w.to(self.real)

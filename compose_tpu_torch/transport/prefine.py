@@ -24,23 +24,27 @@ One exp-5 step with caas/caas launches K1 on the v-grid rho records
 (1, ncell) and on the fine tracers (nt, ncell), K3 on the v-grid rho DSS,
 and K2 in the fine-grid limiter (nt, ncell x np_f^2) and in the t -> v
 transfer (nt, ncell x 16); the first step also runs the v -> t transfer,
-one more K2 launch at the fine np^2. Tracers are a dense leading axis;
-every table lives on the fine mesh's device, in its dtype: f64, or f32 on
-the single-precision route, where the transfer operators and weights are
-set up in f64 and rounded once, and K1, K2 and the v-grid DSS (K4) run in
-f32.
+one more K2 launch at the fine np^2. Cell location on both grids runs
+csrc/locate.cu for CUDA points (transport/locate.CellLocator: the v grid's
+np4 weights in the kernel, the fine grid's (a, b) there and its weights
+eagerly), the eager chain `_locate_plain` for CPU points. Tracers are a
+dense leading axis; every table lives on the fine mesh's device, in its
+dtype: f64, or f32 on the single-precision route, where the transfer
+operators and weights are set up in f64 and rounded once, and K1, K2 and
+the v-grid DSS (K4) run in f32.
 """
 
 import dataclasses
 
 import torch
 
-from .. import basis as basis_mod
+from .. import basis as basis_mod, trace
 from ..config import F64
 from ..mesh import cubed_sphere
 from ..ops import local_qp, sphere, sqr
 from ..ops.reduce import bfb_sum
 from . import dss, limiter as limiter_mod, spf, timeint
+from .locate import CellLocator, basis_weights
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +99,9 @@ class PRefineTransport:
         self.basis_v = basis_mod.create("GllOffsetNodal", config.v_np)
         self.basis_f = basis_mod.create(config.basis, config.np_)
         gll_v = basis_mod.GLL(config.v_np)
+        # Both grids' Newton inverses: 4 iterations at sqr's default tol.
+        self.loc_v = CellLocator(mv, self.basis_v, real, 4, sqr.TOL, real)
+        self.loc_f = CellLocator(mf, self.basis_f, real, 4, sqr.TOL, real)
 
         # Coarse -> fine by the plain GLL basis, fine -> coarse by the fine
         # basis.
@@ -145,23 +152,34 @@ class PRefineTransport:
         mv, mf = self.mesh_v, self.mesh_f
         vdep = timeint.integrate(self.wind.velocity, tf, ts, mv.cgll_xyz,
                                  self.config.nsub)
-        ci_v, a0, b0 = cubed_sphere.get_cell_coords(mv.ne, vdep, mv.rot_R)
-        av, bv = sqr.sphere_to_ref(mv.corners[ci_v], vdep, max_its=4,
-                                   a0=a0, b0=b0)
-        ea = self.basis_v.eval(av)
-        eb = self.basis_v.eval(bv)
-        w_v = (eb[:, :, None] * ea[:, None, :]).reshape(mv.cnn, mv.np2)
-
+        ci_v, w_v = self._locate(self.loc_v, vdep)
         vdep_cells = vdep[mv.dgll2cgll]                # (ncell, npv2, 3)
         dep_f = sphere.normalize(timeint.interp_departure(
             self.vw_f, vdep_cells[self.own_cell_f]))
-        ci_f, a0, b0 = cubed_sphere.get_cell_coords(mf.ne, dep_f, mf.rot_R)
-        af, bf = sqr.sphere_to_ref(mf.corners[ci_f], dep_f, max_its=4,
-                                   a0=a0, b0=b0)
-        fa = self.basis_f.eval(af)
-        fb = self.basis_f.eval(bf)
-        w_f = (fb[:, :, None] * fa[:, None, :]).reshape(mf.cnn, mf.np2)
+        ci_f, w_f = self._locate(self.loc_f, dep_f)
         return (vdep, ci_v, w_v), (ci_f, w_f)
+
+    @staticmethod
+    def _locate(loc, dep):
+        """(ci, w) of departure points on the locator's grid: the kernel
+        for CUDA points, else `_locate_plain` (trace counters
+        `locate.kernel`, `locate.eager`)."""
+        if dep.is_cuda:
+            trace.count("locate.kernel")
+            return loc(dep.contiguous())
+        trace.count("locate.eager")
+        return PRefineTransport._locate_plain(loc, dep)
+
+    @staticmethod
+    def _locate_plain(loc, dep):
+        """The eager chain: the equiangular index on the locator's mesh
+        (whatever its kind), 4 Newton iterations on its corners, the
+        basis weights in the mesh's type."""
+        m = loc.mesh
+        ci, a0, b0 = cubed_sphere.get_cell_coords(m.ne, dep, m.rot_R)
+        a, b = sqr.sphere_to_ref(m.corners[ci], dep, max_its=4, a0=a0,
+                                 b0=b0)
+        return ci, basis_weights(loc.basis, a, b, m.np2)
 
     def _transport_rho_v(self, rho_v, vdep, ci_v, w_v):
         """ISL density transport, CDR and DSS on the v grid (the dycore's

@@ -184,11 +184,12 @@ def test_dss_q_kernel_any_np_sphere(dev, dtype, ne, n, nt):
 # tracers, 2 steps: the caas-node filter and the np8 interp path.
 STEP_CASES = {
     "caasnode_es": (4, dict(filter="caas-node", limiter="caas", dmc="es"),
-                    {"limit_caas_f64": 1, "dss_q_f64": 2, "dopri5_f64": 1}),
+                    {"limit_caas_f64": 1, "dss_q_f64": 2, "dopri5_f64": 1,
+                     "locate_f64": 1}),
     "np8_interp_eh": (8, dict(filter="caas", limiter="caas",
                               timeint="interp", dmc="eh"),
                       {"glbl_caas_f64": 2, "limit_caas_f64": 1,
-                       "dss_q_f64": 2, "dopri5_f64": 1}),
+                       "dss_q_f64": 2, "dopri5_f64": 1, "locate_ab_f64": 1}),
 }
 
 
@@ -237,9 +238,11 @@ IR_CASES = {
                         {"glbl_caas_f64": 1, "limit_caas_f64": 1,
                          "dopri5_f64": 1}),
     # The remap's cell vertices and the ISL step's nodes: two trajectories;
-    # the ISL step's tracer QLT (its rho is the remap's, unfiltered).
+    # the ISL step's cell location and tracer QLT (its rho is the remap's,
+    # unfiltered).
     "mixed_isl": (dict(method="ir", dmc="eh", filter="none",
                        limiter="none"), {"dss_q_f64": 2, "dopri5_f64": 2,
+                                         "locate_f64": 1,
                                          "qlt_tree_f64": 1}),
 }
 
@@ -285,12 +288,13 @@ def test_ir_step_card_vs_cpu(dev, case):
 # grid, 4 tracers, 2 steps of one day: K1 on the v-grid rho records and on
 # the fine tracers, K3 on the v-grid rho DSS, K2 in the fine limiter (np2
 # 36) and, under exp 5, in the t -> v transfer (np2 16) and the first
-# step's v -> t transfer (np2 36).
+# step's v -> t transfer (np2 36); cell location on the np4 v grid (the
+# weights) and on the np6 fine grid (a, b) once per step each.
 PREFINE_CASES = {
     5: {"glbl_caas_f64": 4, "limit_caas_f64": 5, "dss_q_f64": 2,
-        "dopri5_f64": 2},
+        "dopri5_f64": 2, "locate_f64": 2, "locate_ab_f64": 2},
     1: {"glbl_caas_f64": 4, "limit_caas_f64": 2, "dss_q_f64": 2,
-        "dopri5_f64": 2},
+        "dopri5_f64": 2, "locate_f64": 2, "locate_ab_f64": 2},
 }
 
 
@@ -415,7 +419,8 @@ def test_dss_q_slots_kernel(dev, dtype):
 def test_sharded_step_card_vs_cpu(dev):
     # The sharded step (8 tiles of ne4, LocalComm) on the card against
     # the CPU, and bitwise against the single-device step on the card;
-    # K1 does not launch, K2 once and K3 twice per shard.
+    # K1 does not launch, K2 once and K3 twice per shard; cell location
+    # once per shard and once for the first step's coverage check.
     res = {}
     for d in ("cpu", dev):
         model, sh, rho, q = _sharded_isl(d)
@@ -426,6 +431,7 @@ def test_sharded_step_card_vs_cpu(dev):
                    for n, k in _native.KERNELS.items()}
             assert got["glbl_caas_f64"] == 0
             assert got["limit_caas_f64"] == 8 and got["dss_q_f64"] == 16
+            assert got["locate_f64"] == 9
             ref = model.step(rho, q, 0.0, 8640.0)
             assert all(torch.equal(a, b) for a, b in zip(out, ref))
         res[str(d)] = [x.cpu() for x in out]
@@ -487,7 +493,8 @@ def test_kernels_on_dtensors(dev, one_rank):
 
 def test_dtensor_step_card(dev, one_rank):
     # The DTensor step at world size 1 on the card (ne4, caas/caas, 2
-    # tracers): the single-device step's bits, through K1, K2 and K3.
+    # tracers): the single-device step's bits, through K1, K2, K3 and cell
+    # location.
     from compose_tpu_torch import driver
     from compose_tpu_torch.parallel import shard_state, sharded_step
     from compose_tpu_torch.transport import gallery
@@ -505,7 +512,7 @@ def test_dtensor_step_card(dev, one_rank):
                                         86400.0)
     got = {n: k.launches - before[n] for n, k in _native.KERNELS.items()}
     assert (got["glbl_caas_f64"], got["limit_caas_f64"],
-            got["dss_q_f64"]) == (2, 1, 2)
+            got["dss_q_f64"], got["locate_f64"]) == (2, 1, 2, 1)
     for a, b in zip(out, ref):
         assert float((a.full_tensor() - b).abs().max()) < 1e-13
 
@@ -515,8 +522,9 @@ def test_dtensor_step_card(dev, one_rank):
 
 def test_entry_step_card(dev):
     # entry()'s step on the card (its default device) against the same
-    # step on the CPU; K2 once, K3 twice, the trajectory kernel once and the
-    # QLT kernel twice (rho, tracers) per call, K1 never.
+    # step on the CPU; K2 once, K3 twice, the trajectory and cell location
+    # kernels once and the QLT kernel twice (rho, tracers) per call, K1
+    # never.
     from compose_tpu_torch.tools import dryrun
 
     fn, (rho, q) = dryrun.entry()
@@ -525,7 +533,8 @@ def test_entry_step_card(dev):
     out = fn(rho, q)
     got = {n: k.launches - before[n] for n, k in _native.KERNELS.items()}
     assert got == {n: {"limit_caas_f64": 1, "dss_q_f64": 2, "dopri5_f64": 1,
-                       "qlt_tree_f64": 2}.get(n, 0) for n in _native.KERNELS}
+                       "locate_f64": 1, "qlt_tree_f64": 2}.get(n, 0)
+                   for n in _native.KERNELS}
     fn_cpu, _ = dryrun.entry(device="cpu")
     ref = fn_cpu(rho.cpu(), q.cpu())
     for a, b in zip(out, ref):
@@ -889,3 +898,262 @@ def test_qlt_tree_kernel_refuses_bad_table(dev):
         k(rhom.data_ptr(), lo.data_ptr(), Qm.data_ptr(), hi.data_ptr(),
           None, 0, Qm.data_ptr(), Qm.data_ptr(), table.data_ptr(), 7, 2, 0,
           stream=_native.stream_of(Qm))
+
+
+# ---------------------------------------------------------------------------
+# Cell location (csrc/locate.cu) against the eager chain, bitwise: the
+# mesh's dtype and the geometry's, i.e. f32 points with f64 weights (the
+# CAAS cell), f64 with f64 (the QLT cell), f32 with f32 (x64 off).
+
+LOCATE_ROUTES = {"f32-f64": (torch.float64, "f32"),
+                 "f64-f64": (torch.float64, "f64"),
+                 "f32-f32": (F32, "f64")}
+
+
+def _same_bits(a, b):
+    """Equal dtype, shape and bits (-0.0 is not +0.0; NaN equals itself)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ity = {torch.float64: torch.int64, F32: torch.int32}[a.dtype]
+        a, b = a.view(ity), b.view(ity)
+    return torch.equal(a, b)
+
+
+def _locate_model(dev, ne, route, np_=4, basis="GllNodal", rotate=None,
+                  **cfg):
+    from compose_tpu_torch.transport import gallery
+    from compose_tpu_torch.transport.isl import IslConfig, IslTransport
+
+    dtype, geom = LOCATE_ROUTES[route]
+    mesh = cubed_sphere.build(ne, np_, basis, device=dev, dtype=dtype,
+                              rotate=rotate)
+    return IslTransport(mesh, gallery.create_wind("divergent"),
+                        IslConfig(ne=ne, np_=np_, basis=basis, nsub=8,
+                                  geom_dtype=geom, rotate=rotate, **cfg))
+
+
+def _locate_case(model, dep, what=""):
+    """model._locate(dep) takes one launch of its kernel entry and equals
+    model._locate_plain(dep) bit for bit."""
+    base = "locate" if model.locator.nodes is not None else "locate_ab"
+    k = _native.kernel(base, dep.dtype)
+    before = k.launches
+    ci, w = model._locate(dep)
+    assert k.launches == before + 1, what
+    ci0, w0 = model._locate_plain(dep)
+    assert torch.equal(ci, ci0), (what, int((ci != ci0).sum()))
+    assert _same_bits(w, w0), (what, int((w != w0).any(-1).sum()))
+    assert w.dtype == model.real
+
+
+@pytest.mark.parametrize("route", list(LOCATE_ROUTES))
+def test_locate_kernel_ne30_step_times(dev, route):
+    # ne30's 48,602 CGLL departure points at step times spread over the
+    # benchmark's period.
+    model = _locate_model(dev, 30, route)
+    for k in (0, 1, 37, 60, 100, 119, 120, 181, 239):
+        dep = model._departure_points(k * DT, (k + 1) * DT, None)
+        _locate_case(model, dep, f"step {k}")
+
+
+def _edge_points(mesh):
+    """Points on the cube's faces' edges and corners (|x| == |y| == |z|
+    ties), on cell edges (the cell corners, edge midpoints, and points
+    whose equiangular coordinate is a whole number of cells), with +-0
+    components and at the poles, plus a seeded cloud off the sphere."""
+    ne = mesh.ne
+    s = (-1.0, 1.0)
+    pts = [[x, y, z] for x in s for y in s for z in s]
+    t = np.linspace(-1, 1, 9)
+    for a in t:
+        for sx in s:
+            for sy in s:
+                pts += [[sx, sy, a], [sx, a, sy], [a, sx, sy]]
+    for v in ([1, 0, 0], [0, 1, 0], [0, 0, 1]):
+        for sg in s:
+            for z in (0.0, -0.0):
+                p = [sg * c if c else z for c in v]
+                pts.append(p)
+    pts += [[1, 1, 0], [1, -1, -0.0], [-0.0, 1, 1], [0.5, 0.5, 0.3],
+            [0.5, -0.5, 0.5], [-0.3, 0.3, -0.3]]
+    g = np.tan(0.25 * np.pi * (2 * np.arange(ne + 1) / ne - 1))
+    for u in g:
+        for v in g[::3]:
+            pts += [[1, u, v], [-1, u, v], [u, 1, v], [u, v, -1]]
+    pts = np.array(pts, dtype=np.float64)
+    pts = np.concatenate([pts, pts / np.linalg.norm(pts, axis=1,
+                                                    keepdims=True)])
+    c = mesh.corners.double().cpu().numpy()
+    mid = 0.5 * (c + np.roll(c, 1, axis=1))
+    rng = np.random.default_rng(17)
+    cloud = rng.normal(size=(4000, 3)) * rng.uniform(0.5, 1.5, (4000, 1))
+    return np.concatenate([pts, c.reshape(-1, 3), mid.reshape(-1, 3),
+                           cloud])
+
+
+@pytest.mark.parametrize("ne", [4, 30])
+@pytest.mark.parametrize("route", list(LOCATE_ROUTES))
+def test_locate_kernel_edges_ties_and_poles(dev, route, ne):
+    model = _locate_model(dev, ne, route)
+    geom = F32 if model.config.geom_dtype == "f32" else model.real
+    p = _edge_points(model.mesh)
+    _locate_case(model, _t(p, dev, geom), "edge points")
+    nodes = model.mesh.cgll_xyz.to(geom).contiguous()
+    _locate_case(model, nodes, "CGLL nodes")
+
+
+@pytest.mark.parametrize("route", ["f32-f64", "f64-f64"])
+def test_locate_kernel_rotated_mesh(dev, route):
+    model = _locate_model(dev, 12, route, rotate=((0.3, -0.7, 0.2), 0.9))
+    assert model.mesh.rot_R is not None
+    for k in (0, 50):
+        dep = model._departure_points(k * DT, (k + 1) * DT, None)
+        _locate_case(model, dep, f"step {k}")
+    geom = dep.dtype
+    _locate_case(model, _t(_edge_points(model.mesh), dev, geom), "edges")
+
+
+def test_locate_kernel_shard_nodes(dev):
+    # The four-card cell's per-rank points: each strip shard's nodes of
+    # ShardedIsl(model, 4) at ne30 through _departure_data.
+    from compose_tpu_torch.parallel import ShardedIsl
+
+    model = _locate_model(dev, 30, "f32-f64", filter="caas", limiter="caas",
+                          interp_dtype="f32")
+    k = _native.kernel("locate", F32)
+    for t in ShardedIsl(model, 4).shards:
+        before = k.launches
+        dep, ci, w = model._departure_data(36 * DT, 37 * DT, t.nodes)
+        assert k.launches == before + 1
+        ci0, w0 = model._locate_plain(dep)
+        assert torch.equal(ci, ci0) and _same_bits(w, w0)
+
+
+@pytest.mark.parametrize("np_,basis", [(3, "GllNodal"), (8, "GllNodal"),
+                                       (6, "GllOffsetNodal"), (4, "Gll")])
+@pytest.mark.parametrize("route", list(LOCATE_ROUTES))
+def test_locate_ab_kernel_other_bases(dev, route, np_, basis):
+    # Any other basis or np: the kernel's (ci, a, b) entry, the basis's
+    # eager weights.
+    model = _locate_model(dev, 6, route, np_=np_, basis=basis)
+    assert model.locator.nodes is None
+    for k in (0, 77):
+        dep = model._departure_points(k * DT, (k + 1) * DT, None)
+        _locate_case(model, dep, f"np{np_} {basis} step {k}")
+    _locate_case(model, _t(_edge_points(model.mesh), dev, dep.dtype),
+                 "edges")
+
+
+def test_locate_other_meshes_stay_eager(dev):
+    # The nonuniform and subcell meshes run their own locate on the card,
+    # counted as eager; the kernel does not launch.
+    from compose_tpu_torch import trace
+    from compose_tpu_torch.transport import gallery
+    from compose_tpu_torch.transport.isl import IslConfig, IslTransport
+
+    wind = gallery.create_wind("divergent")
+    models = [IslTransport(cubed_sphere.build(4, 4, device=dev, nonuni=True),
+                           wind, IslConfig(ne=4, nsub=2))]
+    sub = cubed_sphere.build(2, 4, device=dev, mesh_type="gllsubcell")
+    models.append(IslTransport(sub, wind, IslConfig(
+        ne=sub.ne, np_=sub.np_, basis="Gll", nsub=2)))
+    before = {n: k.launches for n, k in _native.KERNELS.items()
+              if n.startswith("locate")}
+    trace.reset()
+    trace.enable()
+    try:
+        for m in models:
+            m._departure_data(0.0, DT)
+        ctr = dict(trace.summary()["counters"])
+    finally:
+        trace.disable()
+        trace.reset()
+    assert ctr.get("locate.eager") == 2 and "locate.kernel" not in ctr
+    assert before == {n: k.launches for n, k in _native.KERNELS.items()
+                      if n.startswith("locate")}
+
+
+def test_locate_kernel_refuses_bad_operands(dev):
+    # On the card the wrapper launches or raises: another dtype, shape or
+    # stride, a corner table of another size or type, weights of another
+    # type. Nothing falls back to the eager chain.
+    from compose_tpu_torch.transport import locate
+
+    model = _locate_model(dev, 4, "f64-f64")
+    dep = model._departure_points(0.0, DT, None)
+    corners, _, table = model.locator.constants(dev)
+    strided = dep.t().contiguous().t()
+    assert not strided.is_contiguous()
+    ks = [_native.kernel(b, t) for b in ("locate", "locate_ab")
+          for t in (torch.float64, F32)]
+    before = [k.launches for k in ks]
+    for args, kw, err in (
+            ((strided, corners, 4, 4, table), {}, ValueError),
+            ((dep.half(), corners, 4, 4, table), {}, TypeError),
+            ((dep.float(), corners, 4, 4, table), {}, TypeError),
+            ((dep[:, :2].contiguous(), corners, 4, 4, table), {}, ValueError),
+            ((dep, corners[:-1], 4, 4, table), {}, ValueError),
+            ((dep, corners, 5, 4, table), {}, ValueError),
+            ((dep, corners, 4, 4, table[:-1]), {}, ValueError),
+            ((dep, corners, 4, 4, table), dict(wdtype=F32), TypeError),
+            ((dep, corners, 4, 4, table), dict(p_idx=strided), ValueError),
+            ((dep, corners.cpu(), 4, 4, table), {}, ValueError)):
+        with pytest.raises(err):
+            locate.locate_cells(*args, **kw)
+    with pytest.raises(TypeError):
+        model._locate(dep.half())
+    with pytest.raises(TypeError):
+        model._locate(dep.float())
+    assert [k.launches for k in ks] == before
+    # `_locate` hands the kernel a contiguous copy: a strided input gives
+    # the bits of the eager chain on it.
+    _locate_case(model, strided, "strided")
+
+
+def test_locate_kernel_on_dtensors(dev, one_rank):
+    # CUDA DTensor points reach the kernel through local_map.
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    model = _locate_model(dev, 6, "f32-f64")
+    dep = model._departure_points(0.0, DT, None)
+    ci0, w0 = model._locate_plain(dep)
+    k = _native.kernel("locate", F32)
+    for pl in (Shard(0), Replicate()):
+        before = k.launches
+        ci, w = model._locate(distribute_tensor(dep, one_rank, [pl]))
+        assert k.launches == before + 1
+        assert torch.equal(ci.full_tensor(), ci0)
+        assert _same_bits(w.full_tensor(), w0)
+
+
+@pytest.mark.parametrize("cell", list(CELL_OPTIONS))
+def test_locate_step_bitwise_vs_eager(dev, cell, monkeypatch):
+    # One ne30 step of each one-card cell's options (4 tracers) with the
+    # kernel, then with the eager chain: bitwise; the tracer counts one
+    # kernel call per step.
+    from compose_tpu_torch import driver, trace
+    from compose_tpu_torch.transport import gallery
+    from compose_tpu_torch.transport.isl import IslConfig, IslTransport
+
+    mesh = cubed_sphere.build(30, 4, device=dev)
+    model = IslTransport(mesh, gallery.create_wind("divergent"),
+                         IslConfig(ne=30, nsub=8, **CELL_OPTIONS[cell]))
+    rho = torch.ones((mesh.ncell, 16), dtype=torch.float64, device=dev)
+    q = driver.init_tracers(mesh, ["gaussianhills", "slottedcylinders",
+                                   "cosinebells", "xyztrig"])
+    trace.reset()
+    trace.enable()
+    try:
+        out = model.step(rho, q, 36 * DT, 37 * DT)
+        on = dict(trace.summary()["counters"])
+        trace.reset()
+        monkeypatch.setattr(model, "_locate", model._locate_plain)
+        ref = model.step(rho, q, 36 * DT, 37 * DT)
+        off = dict(trace.summary()["counters"])
+    finally:
+        trace.disable()
+        trace.reset()
+    assert on.get("locate.kernel") == 1 and "locate.eager" not in on
+    assert "locate.kernel" not in off
+    assert _same_bits(out[0], ref[0]) and _same_bits(out[1], ref[1])

@@ -92,7 +92,7 @@ def test_sources_import_no_jax():
     assert not offenders
     cu = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
     assert cu == ["dopri5.cu", "dss_q.cu", "glbl_caas.cu", "limit_caas.cu",
-                  "qlt_tree.cu"]
+                  "locate.cu", "qlt_tree.cu"]
 
 
 def test_cuda_device_raises_without_cuda(monkeypatch):
