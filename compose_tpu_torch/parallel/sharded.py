@@ -17,8 +17,10 @@ tiles). Per step and shard the only collectives are
 every per-cell phase runs on the shard's block. The departure data are
 computed for the shard's CGLL nodes only.
 
-Bitwise contract: every phase repeats the single-device step's
-(transport/isl.py) arithmetic per node and cell. The global sums follow
+Bitwise contract: the interpolation and the rho and tracer CDR are the
+single-device step's own phases (transport/isl.py), run on the shard's
+block through a cell layout (_ShardCells), so their arithmetic per node
+and cell is IslTransport's. The global sums follow
 bfb_sum's tree whatever the decomposition, the QLT runs the same tree,
 K2 is cell-local, and the DSS merge (K3, dss.dss_q_slots) runs on the
 shard's slots followed by the received halo slots, with the coincident
@@ -35,19 +37,44 @@ from .. import trace
 from ..cdr import qlt as qlt_mod
 from ..cdr.bfb import BfbTreeAllReducer, get_reducer
 from ..cdr.qlt_sharded import ShardedQLT
-from ..ops import local_qp
-from ..ops.reduce import bfb_sum
-from ..transport import dss, limiter as limiter_mod, spf
+from ..transport import dss, spf
 from ..transport.cdr_fused import glbl_caas_gsum
 from .comm import LocalComm
 from .halo import DssSlotExchange, HaloMaps, halo_exchange, measured_need_sets
 
-_FILTERS = ("caas", "qlt", "mn2", "caas-node", "none")
-_TIMEINTS = ("exact", "line", "interp", "interpline")
-
 
 class _Shard:
     """One shard's static tables on the device."""
+
+
+class _ShardCells:
+    """Shard t's block as the cell layout of the single-device phases
+    (transport/isl.MeshCells' interface) for one step on its communicator
+    c: the block's tables (F; s2n and jac for ISL, Jt and chol for IR),
+    the BFB allreduce over the DGLL slots, the sharded redistribution, the
+    slot-exchange DSS, and pad rows zeroed."""
+
+    def __init__(self, sh, c, t):
+        self.sh, self.c, self.t = sh, c, t
+
+    def __getattr__(self, name):
+        return getattr(self.t, name)
+
+    def gsum(self, x):
+        return self.sh.r_slots.allreduce(x, self.c)
+
+    def gsum_cells(self, x):
+        return self.gsum(x.reshape(x.shape[:-2] + (-1,)))
+
+    def redistribute(self, rho_mass, Q_min, Q_mass, Q_max, extra):
+        return self.sh._redistribute(self.c, self.t, rho_mass, Q_min, Q_mass,
+                                     Q_max, extra)
+
+    def dss(self, rows):
+        return self.sh._dss(self.c, self.t, rows)
+
+    def zero_pads(self, x):
+        return self.sh._zero_pads(self.t, x)
 
 
 def _slot_exchange(comm, st, tabs, perms):
@@ -205,15 +232,16 @@ class _Sharded:
                                    t.slots)
         return dss.dss_q_slots(t.F_ext, t.F_ext, ext, t.slots)
 
-    def _cell_redistribute(self, c, t, rho_mass, Q_min, Q_mass, Q_max,
-                           extra):
-        """Global redistribution over the cells (caas through the BFB
-        allreduce, qlt through the sharded QLT) of this shard's records;
-        pad cells get 0."""
-        if self.cfg.filter == "caas":
+    def _redistribute(self, c, t, rho_mass, Q_min, Q_mass, Q_max, extra):
+        """spf.MassRedistributor.redistribute on this shard's cells,
+        bitwise equal to the single-device call: caas through the BFB
+        allreduce, qlt through the sharded QLT, mn2 the global QP on the
+        gathered records; pad cells get 0."""
+        filt = self.cfg.filter
+        if filt == "caas":
             out = glbl_caas_gsum(Q_min, Q_mass, Q_max, extra,
                                  lambda x: self.r_cells.allreduce(x, c))
-        else:
+        elif filt == "qlt":
             squeeze = Q_mass.dim() == 1
             Qm, Qm_min, Qm_max = (torch.atleast_2d(x)
                                   for x in (Q_mass, Q_min, Q_max))
@@ -222,6 +250,22 @@ class _Sharded:
             out = self.sqlt.run(c, rho_mass, Qm, Qm_min, Qm_max,
                                 root_extra=ex)
             out = out[0] if squeeze else out
+        else:
+            # The records of every cell gathered, the global QP solved on
+            # every shard (replicated), this shard's cells taken back.
+            mp = self.maps
+            inv = torch.as_tensor(mp.owner * self.B + mp.leaf_slot,
+                                  device=Q_mass.device)
+
+            def gath(v):
+                with trace.span("comm.bfb") as sp:
+                    g = c.all_gather(v, dim=v.dim() - 1)
+                    if trace.active:
+                        sp.add(trace.gather_bytes(c, v))
+                return g.reshape(v.shape[:-1] + (-1,))[..., inv]
+
+            x = spf.run_mn2(gath(Q_min), gath(Q_mass), gath(Q_max), extra)
+            out = x[..., t.cells]
         if t.padmask is not None:
             out = torch.where(t.padmask, 0.0, out)
         return out
@@ -271,11 +315,7 @@ class ShardedIsl(_Sharded):
 
     def __init__(self, model, n_shards: int, depth: int = 2, comm=None,
                  owner=None, need_sets=None):
-        cfg, m = model.config, model.mesh
-        if cfg.filter not in _FILTERS:
-            raise ValueError(f"ShardedIsl: filter {cfg.filter!r}")
-        if cfg.timeint not in _TIMEINTS:
-            raise ValueError(f"ShardedIsl: timeint {cfg.timeint!r}")
+        m = model.mesh
         if m.nonuni or m.is_subcell:
             raise ValueError("ShardedIsl: uniform meshes only")
         if model.fitext is not None:
@@ -284,14 +324,12 @@ class ShardedIsl(_Sharded):
                     HaloMaps(m, n_shards, depth, owner=owner,
                              need_sets=need_sets), model.F)
         self.r_slots = self._reducer(m.np2)
-        self.Ff_sum = bfb_sum(model.Ff)
         d2c = m.dgll2cgll.cpu().numpy()
         for t in self.shards:
-            nodes, slot2node = np.unique(d2c[t.cells.cpu().numpy()],
-                                         return_inverse=True)
+            nodes, s2n = np.unique(d2c[t.cells.cpu().numpy()],
+                                   return_inverse=True)
             t.nodes = torch.as_tensor(nodes, device=m.device)
-            t.slot2node = torch.as_tensor(slot2node.reshape(-1),
-                                          device=m.device)
+            t.s2n = torch.as_tensor(s2n.reshape(-1), device=m.device)
             t.jac = self._block_table(m.jac_node, t, 1.0)
 
     def coverage_ok(self, ts, tf):
@@ -309,176 +347,47 @@ class ShardedIsl(_Sharded):
                 + self.dssx.bytes_per_exchange(nt + 2, itemsize))
 
     # ------------------------------------------------------------------
-    # The per-shard body and its helpers (c: this shard's communicator).
+    # The per-shard body: IslTransport's phases on the shard's layout.
+    # _interp, _rho_cdr and _tracer_cdr stay methods of their own: the
+    # benchmark times each by name (benchmark/harness.py).
 
-    def _gsum_slots(self, c, x):
-        return self.r_slots.allreduce(x.reshape(x.shape[:-2] + (-1,)), c)
-
-    def _redistribute(self, c, t, rho_mass, Q_min, Q_mass, Q_max, extra):
-        """spf.MassRedistributor.redistribute on this shard's cells,
-        bitwise equal to the single-device call; pad cells get 0."""
-        if self.cfg.filter != "mn2":
-            return self._cell_redistribute(c, t, rho_mass, Q_min, Q_mass,
-                                           Q_max, extra)
-        # The records of every cell gathered, the global QP solved on every
-        # shard (replicated), this shard's cells taken back.
-        mp = self.maps
-        inv = torch.as_tensor(mp.owner * self.B + mp.leaf_slot,
-                              device=Q_mass.device)
-
-        def gath(v):
-            with trace.span("comm.bfb") as sp:
-                g = c.all_gather(v, dim=v.dim() - 1)
-                if trace.active:
-                    sp.add(trace.gather_bytes(c, v))
-            return g.reshape(v.shape[:-1] + (-1,))[..., inv]
-
-        x = spf.run_mn2(gath(Q_min), gath(Q_mass), gath(Q_max), extra)
-        out = x[..., t.cells]
-        if t.padmask is not None:
-            out = torch.where(t.padmask, 0.0, out)
-        return out
-
-    def _interp(self, c, t, rho, q, ts, tf):
-        """Departure data of the shard's nodes and the interpolation from
-        [block | halo]: (rho_tgt, q_tgt, each slot's source cell in the
-        extended layout, q_ext); IslTransport._interp_phase's arithmetic."""
-        model, cfg, m = self.model, self.cfg, self.m
-        B, np2, nt = self.B, m.np2, q.shape[0]
+    def _interp(self, cells, rho, q, ts, tf):
+        """Departure data of the shard's nodes and IslTransport's
+        interpolation from [block | halo]: (rho_tgt, q_tgt, each slot's
+        source cell in the extended layout, q_ext)."""
+        model = self.model
         # Issued first: the exchange needs only the inputs.
-        ext = halo_exchange(c, torch.cat([rho[None], q]), self.halo_tabs,
-                            self.halo_perms)
+        ext = halo_exchange(cells.c, torch.cat([rho[None], q]),
+                            self.halo_tabs, self.halo_perms)
         rho_ext, q_ext = ext[0], ext[1:]
-        dep, ci, w = model._departure_data(ts, tf, t.nodes)
-        loc = t.remap[ci]
-        s2n = t.slot2node
-        real = model.real
-        if cfg.interp_dtype == "f32":
-            f32 = torch.float32
-            w32 = w.to(f32)
-            qi = model._interp(q_ext.to(f32), loc, w32)
-            q_tgt = qi[:, s2n].to(real).reshape(nt, B, np2)
-            if cfg.rho_isl:
-                ri = model._interp(rho_ext.to(f32), loc, w32)
-                ratio32 = self._jacobian(dep, t).to(f32) / t.jac.to(f32)
-                rho_tgt = (ratio32 * ri[s2n].reshape(B, np2)).to(real)
-            else:
-                rho_tgt = rho
-        else:
-            if cfg.rho_isl:
-                ri = model._interp(rho_ext, loc, w)
-                ratio = self._jacobian(dep, t) / t.jac
-                rho_tgt = ratio * ri[s2n].reshape(B, np2)
-            else:
-                rho_tgt = rho
-            q_tgt = model._interp(q_ext, loc, w)[:, s2n].reshape(nt, B, np2)
-        return (self._zero_pads(t, rho_tgt), self._zero_pads(t, q_tgt),
-                loc[s2n].reshape(B, np2), q_ext)
+        dep, ci, w = model._departure_data(ts, tf, cells.nodes)
+        rho_tgt, q_tgt, node_src = model._interp_phase(
+            rho, q, dep, cells.remap[ci], w, cells, (rho_ext, q_ext))
+        return (cells.zero_pads(rho_tgt), cells.zero_pads(q_tgt), node_src,
+                q_ext)
 
-    def _jacobian(self, dep, t):
-        """The departure Jacobian of the shard's cells."""
-        m = self.m
-        pc = dep[t.slot2node].reshape(self.B, m.np_, m.np_, 3)
-        return self.model._jacobian_cells(pc)
+    def _rho_cdr(self, cells, rho, rho_tgt):
+        return self.model._rho_cdr(rho, rho_tgt, cells)
+
+    def _tracer_cdr(self, cells, rho, q, rho_tgt, q_tgt, node_src, q_ext):
+        return self.model._tracer_cdr(rho, q, rho_tgt, q_tgt, node_src,
+                                      cells, q_ext)
 
     def _body(self, c, rho, q, ts, tf):
-        t = self.shards[c.rank]
+        cells = _ShardCells(self, c, self.shards[c.rank])
         with trace.span("isl.step"):
             with trace.span("isl.interp"):
-                rho_tgt, q_tgt, node_src, q_ext = self._interp(c, t, rho, q,
-                                                               ts, tf)
+                rho_tgt, q_tgt, node_src, q_ext = self._interp(
+                    cells, rho, q, ts, tf)
             with trace.span("isl.rho_cdr"):
-                rho_tgt = self._rho_cdr(c, t, rho, rho_tgt)
+                rho_tgt = self._rho_cdr(cells, rho, rho_tgt)
             with trace.span("isl.tracer_cdr"):
-                q_new = self._tracer_cdr(c, t, rho, q, rho_tgt, q_tgt,
+                q_new = self._tracer_cdr(cells, rho, q, rho_tgt, q_tgt,
                                          node_src, q_ext)
             with trace.span("isl.dss"):
                 nt = q.shape[0]
                 st = torch.cat([rho_tgt.reshape(1, -1),
                                 q_new.reshape(nt, -1)])
-                q_new = self._dss(c, t, st, weighted=True).reshape(
+                q_new = self._dss(c, cells.t, st, weighted=True).reshape(
                     q_new.shape)
         return rho_tgt, q_new
-
-    def _rho_cdr(self, c, t, rho, rho_tgt):
-        """IslTransport._rho_cdr on the shard's block."""
-        cfg = self.cfg
-        if not cfg.rho_isl:
-            return rho_tgt
-        if cfg.filter == "none":
-            return self._dss_rho(c, t, rho_tgt)
-        F = t.F
-        mm = self._gsum_slots(c, torch.stack([F * rho, F * rho_tgt]))
-        if cfg.filter == "caas-node":
-            return self._dss_rho(c, t, self._zero_pads(
-                t, rho_tgt + (mm[0] - mm[1]) / self.Ff_sum))
-        rho_mass, R_min, R_mass, R_max = spf.record(
-            F, rho_tgt, rho_tgt, torch.zeros_like(rho_tgt),
-            torch.full_like(rho_tgt, 2.0))
-        redist = self._redistribute(c, t, rho_mass, R_min, R_mass, R_max,
-                                    mm[0] - mm[1])
-        rho_tgt = limiter_mod.limit_density(F, rho_tgt, redist - R_mass)
-        return self._dss_rho(c, t, rho_tgt)
-
-    def _dss_rho(self, c, t, rho_blk):
-        return self._dss(c, t, rho_blk.reshape(1, -1)).reshape(
-            rho_blk.shape)
-
-    def _tracer_cdr(self, c, t, rho, q, rho_tgt, q_tgt, node_src, q_ext):
-        """IslTransport._tracer_cdr on the shard's block; the source-cell
-        bounds come from [block | halo]."""
-        cfg = self.cfg
-        if cfg.filter == "none":
-            return q_tgt
-        F = t.F
-        nt = q.shape[0]
-        Q_tgt = q_tgt * rho_tgt[None]
-        QQ = self._gsum_slots(c, torch.stack([F[None] * q * rho[None],
-                                              F[None] * Q_tgt]))
-        rhom1 = F * rho_tgt
-        rho_inv = 1.0 / torch.where(rho_tgt == 0, 1.0, rho_tgt)
-        if cfg.positive_only:
-            Qc_mass = torch.sum(F[None] * Q_tgt, dim=-1)
-            Qc_max = (2.0 * torch.sum(rhom1, dim=-1)).expand(
-                nt, -1).contiguous()
-            redist = self._redistribute(
-                c, t, torch.sum(rhom1, dim=-1), torch.zeros_like(Qc_mass),
-                Qc_mass, Qc_max, QQ[0] - QQ[1])
-            Q_tgt = limiter_mod.limit_density(F, Q_tgt, redist - Qc_mass)
-            return torch.where(rho_tgt[None] == 0, 0.0,
-                               Q_tgt * rho_inv[None])
-
-        q_min_node = torch.amin(q_ext, dim=-1)[:, node_src]
-        q_max_node = torch.amax(q_ext, dim=-1)[:, node_src]
-        if cfg.filter == "caas-node":
-            if cfg.limiter != "none":
-                rel = 1e-2 * (q_max_node - q_min_node)
-                Q_tgt = limiter_mod.limit_tracer(
-                    F, rho_tgt, Q_tgt, q_min_node - rel, q_max_node + rel,
-                    torch.zeros(Q_tgt.shape[:2], dtype=Q_tgt.dtype,
-                                device=Q_tgt.device),
-                    limiter=cfg.limiter, expand_bounds_allowed=True)
-            lo = (q_min_node * rho_tgt[None]).reshape(nt, -1)
-            hi = (q_max_node * rho_tgt[None]).reshape(nt, -1)
-            Q_tgt = local_qp.caas_gsum(
-                t.F.reshape(1, -1).expand(lo.shape), QQ[0], lo, hi,
-                Q_tgt.reshape(nt, -1),
-                gsum=lambda x: self.r_slots.allreduce(x, c)).reshape(
-                    Q_tgt.shape)
-        else:
-            Qc_min = torch.sum(rhom1[None] * q_min_node, dim=-1)
-            Qc_max = torch.sum(rhom1[None] * q_max_node, dim=-1)
-            Qc_mass = torch.sum(F[None] * Q_tgt, dim=-1)
-            redist = self._redistribute(c, t, torch.sum(rhom1, dim=-1),
-                                        Qc_min, Qc_mass, Qc_max,
-                                        QQ[0] - QQ[1])
-            delta = redist - Qc_mass
-            if cfg.limiter != "none":
-                return limiter_mod.limit_tracer(
-                    F, rho_tgt, Q_tgt, q_min_node, q_max_node, delta,
-                    limiter=cfg.limiter,
-                    precomp=(rhom1, Qc_mass + delta, Qc_min, Qc_max),
-                    return_q=True)
-        q_new = torch.where(rho_tgt[None] == 0, q_min_node,
-                            Q_tgt * rho_inv[None])
-        return torch.minimum(torch.maximum(q_new, q_min_node), q_max_node)

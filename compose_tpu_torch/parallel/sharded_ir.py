@@ -18,8 +18,9 @@ IrTransport's step per shard:
     QLT; the limiter runs on the block (K2 for caas); the d2c DSS runs on
     the shard's slots and the received halo slots (K3).
 
-So the projection repeats IrTransport's arithmetic per pair and cell and
-is bitwise equal to it; so is the full step where the single device's
+The projection and the CDR are IrTransport's own (_remap_cdr) on the
+shard's layout (sharded._ShardCells), so the projection is bitwise equal
+to the single device's; so is the full step where the single device's
 sums follow the same order.
 """
 
@@ -28,12 +29,10 @@ import torch
 
 from ..mesh import cubed_sphere
 from ..ops import sphere
-from ..transport import limiter as limiter_mod, timeint
-from ..transport.ir import (_TargetTable, apply_T_contrib, dot_last,
-                            mass_solve_blk, mass_target_terms,
-                            solve_1eq_ls_blk)
+from ..transport import timeint
+from ..transport.ir import _Remap, _TargetTable
 from .halo import HaloMaps, halo_exchange
-from .sharded import _Sharded
+from .sharded import _Sharded, _ShardCells
 
 _DMCS = ("none", "es", "eh", "f", "ef")
 
@@ -106,17 +105,17 @@ class ShardedIr(_Sharded):
 
     # ------------------------------------------------------------------
     def _remap(self, c, t, ts, tf):
-        """This shard's remap data: the sources with a pair onto the
-        shard's cells (`sel`, indices into t.src), their pairs in global
-        (source, candidate) order, T blocks, normalized shares and the local
-        targets' pair table. Every pair of a selected source is assembled,
-        so its column sums are complete."""
+        """This shard's remap data: the _Remap record of the sources with a
+        pair onto the shard's cells (their pairs in global (source,
+        candidate) order, T blocks, normalized shares and the local
+        targets' pair table), and `sel`, those sources' indices into t.src.
+        Every pair of a selected source is assembled, so its column sums
+        are complete."""
         model, cfg, m = self.model, self.cfg, self.m
         ird = model.ird
         adv_vert = timeint.integrate(model.wind.velocity, ts, tf, t.vert,
                                      cfg.nsub)
         adv_cells = adv_vert[t.vmap4]                       # (E, 4, 3)
-        E = adv_cells.shape[0]
         ncand = ird.cands.shape[1]
         ctr = sphere.normalize(torch.mean(adv_cells, dim=1))
         land = cubed_sphere.locate_cell(m, ctr)
@@ -132,100 +131,26 @@ class ShardedIr(_Sharded):
         T, ps_raw = model._assemble_T(adv_cells, pair_src, pair_tgt,
                                       pair_mask,
                                       src_corners=t.src_corners[sel])
-        table = _TargetTable(self.leaf_slot[pair_tgt], local, self.B)
-        gid = t.src[sel]
-        if cfg.method == "ir" or cfg.dmc == "f":
-            fsmo = model._fsmoftm(adv_cells, T, model.F_sphere[gid])
-        else:
-            fsmo = None
-        return dict(sel=sel, gid=gid, pair_src=pair_src,
-                    pair_mask=pair_mask, T=T,
-                    ps=model._normalize_ps(ps_raw, pair_src), table=table,
-                    fsmo=fsmo)
-
-    def _project(self, t, rem, x):
-        """IrTransport._project of source values x (..., E, np2) onto the
-        shard's cells (..., B, np2)."""
-        model, cfg = self.model, self.cfg
-        x = x[..., rem["sel"], :]
-        xin = x * model.ird.Jt[rem["gid"]] if model.facet else x
-        if rem["fsmo"] is not None:
-            xin = xin * rem["fsmo"]
-        xs = xin[..., rem["pair_src"], :]
-        xs = torch.where(rem["pair_mask"][:, None], xs, 0.0)
-        y = rem["table"].sum(apply_T_contrib(rem["T"], xs))
-        if cfg.dmc in ("es", "eh", "ef"):
-            xs = x[..., rem["pair_src"], :]
-            xs = torch.where(rem["pair_mask"][:, None], xs, 0.0)
-            dp = mass_target_terms(rem["ps"],
-                                   model.F_mass[rem["gid"]][rem["pair_src"]],
-                                   xs)
-            d = rem["table"].sum(dp[..., None])[..., 0]
-            c = t.F / t.Jt if model.facet else t.F
-            out = solve_1eq_ls_blk(t.chol, y, c, d)
-        elif model.facet:
-            d = dot_last(torch.ones_like(y), y)
-            out = solve_1eq_ls_blk(t.chol, y, t.F / t.Jt, d)
-        else:
-            out = mass_solve_blk(t.chol, y)
-        if model.facet:
-            out = out / t.Jt
-        if t.padmask is not None:
-            out = torch.where(t.padmask[:, None], 0.0, out)
-        return out
-
-    def _q_bounds(self, rem, rho_s, Q_s):
-        rho_s, Q_s = rho_s[rem["sel"]], Q_s[:, rem["sel"]]
-        q_src = Q_s / torch.where(rho_s == 0, 1.0, rho_s)[None]
-        tab = rem["table"]
-        src = rem["pair_src"][tab.pairs]
-        v = tab.valid
-        inf = float("inf")
-        q_min = torch.amin(torch.where(v, torch.amin(q_src, -1)[..., src],
-                                       inf), -1)
-        q_max = torch.amax(torch.where(v, torch.amax(q_src, -1)[..., src],
-                                       -inf), -1)
-        q_min = torch.clamp_min(q_min, 0.0)
-        q_max = torch.clamp_max(q_max, 1.0)
-        return (torch.where(torch.isfinite(q_min), q_min, 0.0),
-                torch.where(torch.isfinite(q_max), q_max, 1.0))
-
-    def _cdr(self, c, t, rem, rho_s, Q_s, rho_tgt, Q_tgt):
-        """IrTransport._cdr on the shard's cells."""
-        cfg, F = self.cfg, t.F
-        rho_tgt = limiter_mod.limit_density(F, rho_tgt,
-                                            rho_tgt.new_zeros(self.B))
-        q_min, q_max = self._q_bounds(rem, rho_s, Q_s)
-        nt = Q_tgt.shape[0]
-        rho_cell = torch.sum(F * rho_tgt, dim=-1)
-        Qc_mass = torch.sum(F[None] * Q_tgt, dim=-1)
-        redist = self._cell_redistribute(c, t, rho_cell, q_min * rho_cell,
-                                         Qc_mass, q_max * rho_cell,
-                                         rho_cell.new_zeros(nt))
-        shape = Q_tgt.shape
-        Q_tgt = limiter_mod.limit_tracer(
-            F, rho_tgt, Q_tgt, q_min[..., None].expand(shape).contiguous(),
-            q_max[..., None].expand(shape).contiguous(), redist - Qc_mass,
-            limiter=cfg.limiter, expand_bounds_allowed=True)
-        return rho_tgt, Q_tgt
+        return _Remap(adv_cells=adv_cells, pair_src=pair_src,
+                      pair_tgt=pair_tgt, pair_mask=pair_mask, T=T,
+                      ps=model._normalize_ps(ps_raw, pair_src),
+                      table=_TargetTable(self.leaf_slot[pair_tgt], local,
+                                         self.B),
+                      src=t.src[sel]), sel
 
     def _body(self, c, rho, q, ts, tf):
-        cfg = self.cfg
         t = self.shards[c.rank]
-        nt = q.shape[0]
         ext = halo_exchange(c, torch.cat([rho[None], q]), self.halo_tabs,
-                            self.halo_perms)[:, t.src_pos]
-        rho_s, q_s = ext[0], ext[1:]
-        rem = self._remap(c, t, ts, tf)
-        Q_s = q_s * rho_s[None]
-        rho_tgt = self._project(t, rem, rho_s)
-        Q_tgt = self._project(t, rem, Q_s)
-        if cfg.filter != "none":
-            rho_tgt, Q_tgt = self._cdr(c, t, rem, rho_s, Q_s, rho_tgt, Q_tgt)
-        if not cfg.d2c:
+                            self.halo_perms)
+        rem, sel = self._remap(c, t, ts, tf)
+        ext = ext[:, t.src_pos[sel]]
+        rho_tgt, Q_tgt = self.model._remap_cdr(rem, ext[0], ext[1:],
+                                               _ShardCells(self, c, t))
+        if not self.cfg.d2c:
             return rho_tgt, torch.where(
                 rho_tgt[None] == 0, 0.0,
                 Q_tgt / torch.where(rho_tgt == 0, 1.0, rho_tgt)[None])
+        nt = Q_tgt.shape[0]
         out = self._dss(c, t, torch.cat([rho_tgt.reshape(1, -1),
                                          Q_tgt.reshape(nt, -1)]))
         rho_out = out[0].reshape(rho_tgt.shape)

@@ -86,7 +86,8 @@ def profile(ne=30, nt=40, device="cuda", fine=False):
     dep_, ci_, w = row("departure_data (all)",
                        lambda: model._departure_data(0.0, dt))
     row(f"interp {nt} tracers", lambda: model._interp(q, ci_, w))
-    row("jacobian_departure", lambda: model._jacobian_departure(dep_))
+    row("jacobian_departure", lambda: model._jacobian_departure(
+        dep_, model.d2c_map))
     trace.enable()
     trace.reset()
     row("FULL STEP", lambda: model.step(rho, q, 0.0, dt), n=10)

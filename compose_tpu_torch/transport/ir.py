@@ -16,7 +16,7 @@ One step:
      integrals); CDG carries the Jacobian ratio inside the quadrature
      (sphere) or integrates in source coordinates (facet), and under dmc f
      takes the facet factor too (a difference from the JAX package, see
-     _fsmoftm_or_ones);
+     _density_factor);
   4. project: y = sum over a target's pairs of T (src FsmoFtm), then the
      per-cell Cholesky solve; dmc es/eh/ef add a per-cell mass equality
      (sphere or GLL measure), geh one global equality, dmc f the facet
@@ -50,6 +50,7 @@ from ..mesh import cubed_sphere, ir_data
 from ..ops import clip, sphere, sqr
 from ..ops.reduce import bfb_sum
 from . import dss, limiter as limiter_mod, spf, timeint
+from .isl import MeshCells
 
 _EQ_LOCAL = ("es", "eh", "ef")           # per-cell mass equality
 _FACET = ("f", "ef")                     # facet transport
@@ -193,6 +194,9 @@ class IrTransport:
         self.euler_v = self.ird.vert_xyz[self.ird.cell2vert]   # (ncell, 4, 3)
         self.mrd = (spf.MassRedistributor(mesh.ncell, config.filter)
                     if config.filter != "none" else None)
+        self.cells = MeshCells(
+            self, self.F_mass, Jt=self.ird.Jt,
+            chol=self.ird.chol_ref[None] if self.facet else self.ird.chol)
 
     # ------------------------------------------------------------------
     def step(self, rho, q, ts: float, tf: float):
@@ -204,7 +208,7 @@ class IrTransport:
         """Density-only remap plus the positivity limiter: the density leg
         of the mixed `isl` method."""
         rem = self._remap_data(ts, tf)
-        rho_tgt = self._project(rem, rho, self._fsmoftm_or_ones(rem, rho))
+        rho_tgt = self._project(rem, rho, self._density_factor(rem))
         return limiter_mod.limit_density(
             self.F_mass, rho_tgt, rho_tgt.new_zeros(self.mesh.ncell))
 
@@ -340,10 +344,10 @@ class IrTransport:
             acc = acc + x[:, j]
         return acc
 
-    def _fsmoftm(self, adv_cells, T, F_src=None):
+    def _fsmoftm(self, adv_cells, T, F_src):
         """IR density factor per DGLL node of each source: Eulerian over
         advected source basis integrals (facet: GLL weights over T's column
-        sums). F_src: the sources' sphere integrals (default every cell's)."""
+        sums). F_src: the sources' sphere integrals."""
         m = self.mesh
         if self.facet:
             colsum = self._src_sum(torch.sum(T, dim=-2),
@@ -353,7 +357,7 @@ class IrTransport:
         F_adv = cubed_sphere._dgbfi_sphere(
             adv_cells, self.ird.tq_bary, self.ird.tq_w,
             m.np_).reshape(-1, m.np2)
-        return (self.F_sphere if F_src is None else F_src) / F_adv
+        return F_src / F_adv
 
     def _normalize_ps(self, ps_raw, pair_src):
         """Source-share integrals normalized per source basis function."""
@@ -368,15 +372,6 @@ class IrTransport:
         xs = torch.where(rem.pair_mask[:, None], xs, 0.0)
         return rem.table.sum(apply_T_contrib(rem.T, xs))
 
-    def _chol(self):
-        return self.ird.chol_ref[None] if self.facet else self.ird.chol
-
-    def _mass_solve(self, y):
-        return mass_solve_blk(self._chol(), y)
-
-    def _solve_1eq_ls(self, y, c, d):
-        return solve_1eq_ls_blk(self._chol(), y, c, d)
-
     def _solve_glbl_eq(self, y, x_src):
         """One global mass equality in the GLL measure (dmc geh)."""
         L, F = self.ird.chol, self.F_mass
@@ -387,50 +382,61 @@ class IrTransport:
         mu = a2 / torch.sum(s * s)
         return _cellwise(L, z + mu[..., None, None] * s, transpose=True)
 
-    def _project(self, rem, x, FsmoFtm):
-        """The remap of one field batch x (..., ncell, np2)."""
-        cfg, Jt = self.config, self.ird.Jt
-        F_mass = self.F_mass
-        # The facet transport moves (x J): J first, then the density factor
-        # (ones where the method has none).
-        xin = x * Jt if self.facet else x
-        y = self._apply_T(rem, xin * FsmoFtm)
+    @staticmethod
+    def _at_src(rem, x):
+        """A per-cell table x at rem's sources."""
+        return x if rem.src is None else x[rem.src]
+
+    def _project(self, rem, x, FsmoFtm, cells=None):
+        """The remap of one field batch x (..., nsrc, np2) on rem's sources
+        onto the layout `cells` (default the whole mesh); FsmoFtm: the
+        density factor, or None for none."""
+        cells = self.cells if cells is None else cells
+        cfg = self.config
+        # The facet transport moves (x J): J first, then the density factor.
+        xin = x * self._at_src(rem, self.ird.Jt) if self.facet else x
+        if FsmoFtm is not None:
+            xin = xin * FsmoFtm
+        y = self._apply_T(rem, xin)
         if cfg.dmc in _EQ_LOCAL:
             # Local mass target: this cell's share of each source basis
             # function's mass.
             xs = x[..., rem.pair_src, :]
             xs = torch.where(rem.pair_mask[:, None], xs, 0.0)
-            dp = mass_target_terms(rem.ps, F_mass[rem.pair_src], xs)
+            dp = mass_target_terms(
+                rem.ps, self._at_src(rem, self.F_mass)[rem.pair_src], xs)
             d = rem.table.sum(dp[..., None])[..., 0]
-            c = F_mass / Jt if self.facet else F_mass
-            out = self._solve_1eq_ls(y, c, d)
+            c = cells.F / cells.Jt if self.facet else cells.F
+            out = solve_1eq_ls_blk(cells.chol, y, c, d)
         elif cfg.dmc == "geh":
             out = self._solve_glbl_eq(y, x)
         elif self.facet:
             # dmc f: enforce the facet identity w2' Mref^-1 y = 1' y, exact
             # in exact arithmetic, whose plain solve drifts by a fixed
-            # per-cell defect in floating point (see _fsmoftm_or_ones).
+            # per-cell defect in floating point (see _density_factor).
             d = dot_last(torch.ones_like(y), y)
-            out = self._solve_1eq_ls(y, F_mass / Jt, d)
+            out = solve_1eq_ls_blk(cells.chol, y, cells.F / cells.Jt, d)
         else:
-            out = self._mass_solve(y)
+            out = mass_solve_blk(cells.chol, y)
         if self.facet:
-            out = out / Jt
-        return out
+            out = out / cells.Jt
+        return cells.zero_pads(out)
 
-    def _fsmoftm_or_ones(self, rem, rho):
+    def _density_factor(self, rem):
         """IR's density factor; for CDG under dmc f the facet factor too
-        (GLL weights over T's column sums), which is 1 in exact arithmetic.
-        CDG's facet conservation rests on two identities that hold in
-        exact arithmetic, T's column sums = w2 and w2' Mref^-1 = 1'. The
-        JAX package leaves both to floating point, where their per-step
-        defects (a few ulp of the mass each, set by the last bits of the
-        tables) cancel or add depending on the machine that built the
-        tables; the port enforces both, as the JAX package does for IR."""
+        (GLL weights over T's column sums), which is 1 in exact arithmetic;
+        None for CDG otherwise. CDG's facet conservation rests on two
+        identities that hold in exact arithmetic, T's column sums = w2 and
+        w2' Mref^-1 = 1'. The JAX package leaves both to floating point,
+        where their per-step defects (a few ulp of the mass each, set by the
+        last bits of the tables) cancel or add depending on the machine that
+        built the tables; the port enforces both, as the JAX package does
+        for IR."""
         cfg = self.config
         if cfg.method == "ir" or cfg.dmc == "f":
-            return self._fsmoftm(rem.adv_cells, rem.T)
-        return torch.ones_like(rho)
+            return self._fsmoftm(rem.adv_cells, rem.T,
+                                 self._at_src(rem, self.F_sphere))
+        return None
 
     def _remap_data(self, ts, tf):
         """Advected cells, pairs, T blocks, normalized shares and the
@@ -463,21 +469,22 @@ class IrTransport:
         return (torch.where(torch.isfinite(q_min), q_min, 0.0),
                 torch.where(torch.isfinite(q_max), q_max, 1.0))
 
-    def _cdr(self, rem, rho, Q, rho_tgt, Q_tgt):
+    def _cdr(self, rem, rho, Q, rho_tgt, Q_tgt, cells):
         """Density positivity, global redistribution of the tracer masses
         within the T-graph bounds (K1 for caas) and the cell-local limiter
-        (K2 for caas), bounds expanded where a cell is infeasible."""
-        m, cfg, F = self.mesh, self.config, self.F_mass
+        (K2 for caas), bounds expanded where a cell is infeasible; rho and
+        Q on rem's sources, the targets on the layout `cells`."""
+        cfg, F = self.config, cells.F
         rho_tgt = limiter_mod.limit_density(F, rho_tgt,
-                                            rho_tgt.new_zeros(m.ncell))
+                                            rho_tgt.new_zeros(F.shape[0]))
         q_min, q_max = self._q_bounds(rem, rho, Q)
         nt = Q.shape[0]
         rho_cell = torch.sum(F * rho_tgt, dim=-1)
         Qc_mass = torch.sum(F[None] * Q_tgt, dim=-1)
-        redist = self.mrd.redistribute(
+        redist = cells.redistribute(
             rho_cell, q_min * rho_cell, Qc_mass, q_max * rho_cell,
             rho_cell.new_zeros(nt))
-        shape = (nt, m.ncell, m.np2)
+        shape = Q_tgt.shape
         Q_tgt = limiter_mod.limit_tracer(
             F, rho_tgt, Q_tgt, q_min[..., None].expand(shape).contiguous(),
             q_max[..., None].expand(shape).contiguous(), redist - Qc_mass,
@@ -486,26 +493,29 @@ class IrTransport:
 
     def _step_impl(self, rho, q, ts, tf):
         m, cfg = self.mesh, self.config
-        rem = self._remap_data(ts, tf)
-        FsmoFtm = self._fsmoftm_or_ones(rem, rho)
-        # The cell-integrated methods remap the tracer masses Q = q rho.
-        Q = q * rho[None]
-        rho_tgt = self._project(rem, rho, FsmoFtm)
-        Q_tgt = self._project(rem, Q, FsmoFtm)
-        if cfg.filter != "none":
-            rho_tgt, Q_tgt = self._cdr(rem, rho, Q, rho_tgt, Q_tgt)
+        rho_tgt, Q_tgt = self._remap_cdr(self._remap_data(ts, tf), rho, q,
+                                         self.cells)
         if not cfg.d2c:
             return rho_tgt, torch.where(
                 rho_tgt[None] == 0, 0.0,
                 Q_tgt / torch.where(rho_tgt == 0, 1.0, rho_tgt)[None])
-        nt = Q.shape[0]
-        rho_out = dss.dss_gather_t(rho_tgt.reshape(1, -1), self.d2c_map,
-                                   m.c2d_idx, m.c2d_mask, self.Ff,
-                                   self.slots).reshape(m.ncell, m.np2)
-        Q_out = dss.dss_gather_t(Q_tgt.reshape(nt, -1), self.d2c_map,
-                                 m.c2d_idx, m.c2d_mask, self.Ff,
-                                 self.slots).reshape(Q_tgt.shape)
+        nt = Q_tgt.shape[0]
+        rho_out = self.cells.dss(rho_tgt.reshape(1, -1)).reshape(m.ncell,
+                                                                 m.np2)
+        Q_out = self.cells.dss(Q_tgt.reshape(nt, -1)).reshape(Q_tgt.shape)
         return rho_out, Q_out / torch.where(rho_out == 0, 1.0, rho_out)[None]
+
+    def _remap_cdr(self, rem, rho, q, cells):
+        """The remap from rem's sources (rho, q) onto the layout `cells`:
+        the projection of rho and the tracer masses Q = q rho, then the
+        CDR; returns (rho_tgt, Q_tgt)."""
+        FsmoFtm = self._density_factor(rem)
+        Q = q * rho[None]
+        rho_tgt = self._project(rem, rho, FsmoFtm, cells)
+        Q_tgt = self._project(rem, Q, FsmoFtm, cells)
+        if self.config.filter != "none":
+            rho_tgt, Q_tgt = self._cdr(rem, rho, Q, rho_tgt, Q_tgt, cells)
+        return rho_tgt, Q_tgt
 
 
 @dataclasses.dataclass
@@ -518,3 +528,5 @@ class _Remap:
     T: torch.Tensor
     ps: torch.Tensor
     table: _TargetTable
+    # The sources' cell ids (None: every cell, in order).
+    src: torch.Tensor = None

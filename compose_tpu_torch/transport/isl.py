@@ -90,6 +90,39 @@ class IslConfig:
                                  f"expected {' | '.join(allowed)}")
 
 
+class MeshCells:
+    """The whole mesh as the cell layout of a transport step's phases
+    (IslTransport's interpolation and CDR, IrTransport's projection and
+    CDR): the mass measure F on its cells, the BFB sums over its DGLL
+    slots (`gsum_cells` per cell batch, `gsum` flat), the model's global
+    redistribution, the DSS of (C, ndgll) rows with the weights F (K3 in
+    f64, K4 in f32), and no pad rows. `tables`: the phases' other tables
+    (IslTransport: the slot -> CGLL node map s2n, the arrival Jacobian jac
+    and F's total; IrTransport: Jt and chol). parallel/sharded.py's
+    _ShardCells is a shard's block behind the same interface."""
+
+    def __init__(self, model, F, **tables):
+        self.model, self.F = model, F
+        vars(self).update(tables)
+
+    gsum = staticmethod(bfb_sum)
+    gsum_cells = staticmethod(bfb_sum_cells)
+
+    def redistribute(self, rho_mass, Q_min, Q_mass, Q_max, extra):
+        return self.model.mrd.redistribute(rho_mass, Q_min, Q_mass, Q_max,
+                                           extra)
+
+    def dss(self, rows):
+        md = self.model
+        m = md.mesh
+        return dss.dss_gather_t(rows, md.d2c_map, m.c2d_idx, m.c2d_mask,
+                                md.Ff, md.slots)
+
+    @staticmethod
+    def zero_pads(x):
+        return x
+
+
 class IslTransport:
     """Static mesh and basis tables on the mesh's device, and the step."""
 
@@ -129,6 +162,8 @@ class IslTransport:
         self.locator = CellLocator(
             mesh, self.basis, F32 if f32 else self.real, 3 if f32 else 4,
             _TOL_F32 if f32 else sqr.TOL, self.real)
+        self.cells = MeshCells(self, self.F, s2n=self.d2c_map,
+                               jac=mesh.jac_node, F_total=bfb_sum(self.Ff))
 
     def _init_velocity_grid(self):
         """The coarse np=v_np GLL velocity grid (with the fine mesh's
@@ -247,11 +282,13 @@ class IslTransport:
             acc = acc + src[..., k] * w[..., k]
         return acc
 
-    def _jacobian_cells(self, pc):
-        """Isoparametric |J| of cells with nodal positions pc (ncell, np,
-        np, 3), [j, i] layout, as explicit left-to-right chains; any number
-        of cells (a shard's block too)."""
+    def _jacobian_departure(self, dep, s2n):
+        """Isoparametric |J| at the departure points `dep` of the cells
+        whose DGLL slots take the CGLL nodes `s2n` ([j, i] layout), as
+        explicit left-to-right chains; any number of cells (a shard's block
+        too)."""
         m = self.mesh
+        pc = dep[s2n].reshape(-1, m.np_, m.np_, 3)
         D = self.deriv_at_nodes.to(pc.dtype)
         pcT = torch.movedim(pc, 0, -1)                  # (j, i, d, cells)
         f = pcT
@@ -280,18 +317,10 @@ class IslTransport:
         jac = torch.sqrt(dot_d(cr, cr))                 # (j, i, cells)
         return torch.movedim(jac, -1, 0).reshape(pc.shape[0], m.np2)
 
-    def _jacobian_departure(self, dep):
-        m = self.mesh
-        pc = dep[m.dgll2cgll].reshape(m.ncell, m.np_, m.np_, 3)
-        return self._jacobian_cells(pc)
-
     def _dss(self, field):
         """DSS of a (ncell, np2) field with the static weights F (K3 in
         f64, K4 in f32)."""
-        out = dss.dss_gather_t(field.reshape(1, -1), self.d2c_map,
-                               self.mesh.c2d_idx, self.mesh.c2d_mask,
-                               self.Ff, self.slots)
-        return out.reshape(field.shape)
+        return self.cells.dss(field.reshape(1, -1)).reshape(field.shape)
 
     def _dss_q(self, rho_dg, q):
         """Mixing-ratio DSS of q (nt, ncell, np2) weighted by F rho (K3 in
@@ -302,96 +331,113 @@ class IslTransport:
         return out.reshape(q.shape)
 
     # ------------------------------------------------------------------
-    def _interp_phase(self, rho, q, dep, ci, w):
-        """Density and tracers at the departure points, on the DGLL slots:
-        (rho_tgt, q_tgt) in the working type, and each slot's departure
-        cell. With rho_isl=False the density is held."""
-        m, cfg = self.mesh, self.config
-        nt = q.shape[0]
-        if cfg.interp_dtype == "f32":
-            # f32 geometry gives f32 weights; rho and the tracers are
-            # gathered and contracted in f32, the Jacobian ratio in f32.
-            # Mass and bounds are restored in the working type by the CDR.
-            w32 = w.to(F32)
-            qi = self._interp(q.to(F32), ci, w32)            # (nt, cnn)
-            q_tgt = qi[:, self.d2c_map].to(self.real).reshape(nt, m.ncell,
-                                                              m.np2)
-            if cfg.rho_isl:
-                ri = self._interp(rho.to(F32), ci, w32)      # (cnn,)
-                ratio32 = self._jacobian_departure(dep).to(F32) \
-                    / m.jac_node.to(F32)
-                rho_tgt = (ratio32 * ri[self.d2c_map].reshape(
-                    m.ncell, m.np2)).to(self.real)
-            else:
-                rho_tgt = rho
-        else:
-            if cfg.rho_isl:
-                rho_interp = self._interp(rho, ci, w)
-                ratio = self._jacobian_departure(dep) / m.jac_node
-                rho_tgt = ratio * rho_interp[self.d2c_map].reshape(m.ncell,
-                                                                   m.np2)
-            else:
-                rho_tgt = rho
-            q_tgt = self._interp(q, ci, w)[:, self.d2c_map].reshape(
-                nt, m.ncell, m.np2)
-        return rho_tgt, q_tgt, ci[self.d2c_map].reshape(m.ncell, m.np2)
+    def _interp_phase(self, rho, q, dep, ci, w, cells=None, src=None):
+        """Density and tracers at the departure points, on the DGLL slots
+        of the layout `cells` (default the whole mesh): (rho_tgt, q_tgt) in
+        the working type, and each slot's departure cell. `src`: the (rho,
+        q) that `ci` indexes (default rho, q). With rho_isl=False the
+        density is held. Under interp_dtype f32, rho, the tracers and the
+        Jacobian ratio are gathered and contracted in f32 (f32 geometry
+        gives f32 weights); mass and bounds are restored in the working
+        type by the CDR."""
+        cells = self.cells if cells is None else cells
+        f32 = self.config.interp_dtype == "f32"
+        it = F32 if f32 else self.real
+        rho_src, q_src = (rho, q) if src is None else src
+        s2n = cells.s2n
+        n, np2 = cells.jac.shape
+        wi = w.to(it)
 
-    def _rho_cdr(self, rho, rho_tgt):
-        """The density after the transport step, before the tracers' CDR:
-        held (rho_isl=False); the DSS alone (filter none); for caas-node a
+        def tracers():
+            return self._interp(q_src.to(it), ci, wi)[:, s2n].to(
+                self.real).reshape(q.shape[0], n, np2)
+
+        # In f32 the tracers go first: their gather, the phase's largest
+        # device work, then runs while the host issues the Jacobian's
+        # launches, not just before the rho CDR's host sync. The working
+        # type keeps rho first, the order of the DTensor step's all-gathers
+        # that tests/test_torch_sharding.py pins.
+        q_tgt = tracers() if f32 else None
+        rho_tgt = rho
+        if self.config.rho_isl:
+            ri = self._interp(rho_src.to(it), ci, wi)
+            # f32 departure Jacobians widen inside the f64 division.
+            ratio = self._jacobian_departure(dep, s2n)
+            ratio = (ratio.to(F32) if f32 else ratio) / cells.jac.to(it)
+            rho_tgt = (ratio * ri[s2n].reshape(n, np2)).to(self.real)
+        if q_tgt is None:
+            q_tgt = tracers()
+        return rho_tgt, q_tgt, ci[s2n].reshape(n, np2)
+
+    def _rho_cdr(self, rho, rho_tgt, cells=None):
+        """The density after the transport step, before the tracers' CDR,
+        on the layout `cells` (default the whole mesh): held
+        (rho_isl=False); the DSS alone (filter none); for caas-node a
         uniform shift that restores the mass, then the DSS; else global
         redistribution (K1 for caas) on the cell-mean density bounds
         [0, 2], the positivity limiter, then the DSS (K3 or K4)."""
         cfg = self.config
+        cells = self.cells if cells is None else cells
         if not cfg.rho_isl:
             return rho_tgt
+
+        def dss_rho(x):
+            return cells.dss(x.reshape(1, -1)).reshape(x.shape)
+
         if cfg.filter == "none":
-            return self._dss(rho_tgt)
-        F = self.F
-        mm = bfb_sum_cells(torch.stack([F * rho, F * rho_tgt]))
+            return dss_rho(rho_tgt)
+        F = cells.F
+        mm = cells.gsum_cells(torch.stack([F * rho, F * rho_tgt]))
         if cfg.filter == "caas-node":
-            return self._dss(rho_tgt + (mm[0] - mm[1]) / bfb_sum(self.Ff))
+            # F's total over the whole mesh, whatever the layout.
+            return dss_rho(cells.zero_pads(
+                rho_tgt + (mm[0] - mm[1]) / self.cells.F_total))
         rho_mass, R_min, R_mass, R_max = spf.record(
             F, rho_tgt, rho_tgt, torch.zeros_like(rho_tgt),
             torch.full_like(rho_tgt, 2.0))
-        redist = self.mrd.redistribute(rho_mass, R_min, R_mass, R_max,
-                                       mm[0] - mm[1])
+        redist = cells.redistribute(rho_mass, R_min, R_mass, R_max,
+                                    mm[0] - mm[1])
         rho_tgt = limiter_mod.limit_density(F, rho_tgt, redist - R_mass)
-        return self._dss(rho_tgt)
+        return dss_rho(rho_tgt)
 
-    def _tracer_cdr(self, rho, q, rho_tgt, q_tgt, node_src_cell):
-        """The tracers' CDR; returns mixing ratios before the DSS. Filter
+    def _tracer_cdr(self, rho, q, rho_tgt, q_tgt, node_src_cell, cells=None,
+                    q_src=None):
+        """The tracers' CDR on the layout `cells` (default the whole mesh);
+        returns mixing ratios before the DSS. The source-cell bounds come
+        from `q_src` (default q), which `node_src_cell` indexes. Filter
         none: q_tgt. Positive-only: [0, 2] records, redistribution and the
         nonnegativity limiter on the tracer masses. caas-node: the
         relaxed-bounds prefilter (K2 for caas), then one CAAS over all DGLL
-        nodes (caas_gsum with bfb_sum). Otherwise per-cell records, global
-        redistribution (K1 for caas), the cell-local limiter (K2 for caas);
-        zero-density nodes at their lower bound."""
+        nodes (caas_gsum with the BFB sum). Otherwise per-cell records,
+        global redistribution (K1 for caas), the cell-local limiter (K2 for
+        caas); zero-density nodes at their lower bound."""
         cfg = self.config
         if cfg.filter == "none":
             return q_tgt
-        F = self.F
+        cells = self.cells if cells is None else cells
+        q_src = q if q_src is None else q_src
+        F = cells.F
         nt = q.shape[0]
         Q_tgt = q_tgt * rho_tgt[None]
-        QQ = bfb_sum_cells(torch.stack([F[None] * q * rho[None],
-                                        F[None] * Q_tgt]))
+        QQ = cells.gsum_cells(torch.stack([F[None] * q * rho[None],
+                                           F[None] * Q_tgt]))
         rhom1 = F * rho_tgt
         rho_inv = 1.0 / torch.where(rho_tgt == 0, 1.0, rho_tgt)
         if cfg.positive_only:
             Qc_mass = torch.sum(F[None] * Q_tgt, dim=-1)
             Qc_max = (2.0 * torch.sum(rhom1, dim=-1)).expand(
                 nt, -1).contiguous()
-            redist = self.mrd.redistribute(
+            redist = cells.redistribute(
                 torch.sum(rhom1, dim=-1), torch.zeros_like(Qc_mass),
                 Qc_mass, Qc_max, QQ[0] - QQ[1])
             Q_tgt = limiter_mod.limit_density(F, Q_tgt, redist - Qc_mass)
             return torch.where(rho_tgt[None] == 0, 0.0,
                                Q_tgt * rho_inv[None])
 
-        q_min_cell = torch.amin(q, dim=-1)
-        q_max_cell = torch.amax(q, dim=-1)
+        q_min_cell = torch.amin(q_src, dim=-1)
+        q_max_cell = torch.amax(q_src, dim=-1)
         if self.fitext is not None:
-            fmin, fmax, fuse = self.fitext.calc(q)
+            fmin, fmax, fuse = self.fitext.calc(q_src)
             q_min_cell = torch.where(fuse, torch.minimum(q_min_cell, fmin),
                                      q_min_cell)
             q_max_cell = torch.where(fuse, torch.maximum(q_max_cell, fmax),
@@ -414,14 +460,14 @@ class IslTransport:
             lo = (q_min_node * rho_tgt[None]).reshape(nt, -1)
             hi = (q_max_node * rho_tgt[None]).reshape(nt, -1)
             Q_tgt = local_qp.caas_gsum(
-                self.Ff[None].expand(lo.shape), QQ[0], lo, hi,
-                Q_tgt.reshape(nt, -1), gsum=bfb_sum).reshape(Q_tgt.shape)
+                F.reshape(1, -1).expand(lo.shape), QQ[0], lo, hi,
+                Q_tgt.reshape(nt, -1), gsum=cells.gsum).reshape(Q_tgt.shape)
         else:
             Qc_min = torch.sum(rhom1[None] * q_min_node, dim=-1)
             Qc_max = torch.sum(rhom1[None] * q_max_node, dim=-1)
             Qc_mass = torch.sum(F[None] * Q_tgt, dim=-1)
-            redist = self.mrd.redistribute(torch.sum(rhom1, dim=-1), Qc_min,
-                                           Qc_mass, Qc_max, QQ[0] - QQ[1])
+            redist = cells.redistribute(torch.sum(rhom1, dim=-1), Qc_min,
+                                        Qc_mass, Qc_max, QQ[0] - QQ[1])
             delta = redist - Qc_mass
             if cfg.limiter != "none":
                 return limiter_mod.limit_tracer(
@@ -441,9 +487,7 @@ class IslTransport:
         m = self.mesh
         nt = q_new.shape[0]
         rho_out = self._dss(rho_tgt)
-        Q_out = dss.dss_gather_t((q_new * rho_tgt[None]).reshape(nt, -1),
-                                 self.d2c_map, m.c2d_idx, m.c2d_mask, self.Ff,
-                                 self.slots)
+        Q_out = self.cells.dss((q_new * rho_tgt[None]).reshape(nt, -1))
         q_out = Q_out / torch.where(rho_out == 0, 1.0, rho_out).reshape(1, -1)
         vals = q_new.reshape(nt, -1)[:, m.c2d_idx]          # (nt, cnn, 4)
         inf = float("inf")

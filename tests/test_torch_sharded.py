@@ -73,21 +73,31 @@ def test_sharded_isl_bitwise(layout, ne, ns, filt, lim):
     assert _same(sh.step(*out, DT, 2 * DT), model.step(*ref, DT, 2 * DT))
 
 
-@pytest.mark.parametrize("kw", [
-    dict(filter="qlt", limiter="caas", positive_only=True),
-    dict(filter="caas", limiter="caas", geom_dtype="f32",
-         interp_dtype="f32"),
-    dict(filter="caas", limiter="caas", interp_dtype="f32"),
-    dict(filter="qlt", limiter="mn2", rho_isl=False),
-    dict(filter="caas", limiter="caas", timeint="interp", v_np=2),
-    dict(filter="caas", limiter="caags", timeint="line"),
-    dict(filter="caas-node", limiter="caas", dmc="es"),
-    dict(filter="qlt", limiter="qlt", timeint="interpline", v_np=2),
-], ids=["qlt-pve", "f32-geom-interp", "f32-interp", "rho-held",
-        "interp-v2", "line-caags", "caas-node-es", "interpline-lqlt"])
-def test_sharded_isl_options_bitwise(kw):
-    model, rho, q = _isl(4, **kw)
-    sh = _sharded(model, "tiles", 8)
+OPTIONS = [
+    ("qlt-pve", dict(filter="qlt", limiter="caas", positive_only=True)),
+    ("f32-geom-interp", dict(filter="caas", limiter="caas",
+                             geom_dtype="f32", interp_dtype="f32")),
+    ("f32-interp", dict(filter="caas", limiter="caas", interp_dtype="f32")),
+    ("rho-held", dict(filter="qlt", limiter="mn2", rho_isl=False)),
+    ("interp-v2", dict(filter="caas", limiter="caas", timeint="interp",
+                       v_np=2)),
+    ("line-caags", dict(filter="caas", limiter="caags", timeint="line")),
+    ("caas-node-es", dict(filter="caas-node", limiter="caas", dmc="es")),
+    ("interpline-lqlt", dict(filter="qlt", limiter="qlt",
+                             timeint="interpline", v_np=2)),
+]
+
+
+# Each option on 2-D tiles (ne4, no pad rows) and on ragged strips (ne5
+# over 8, pad rows in the last block).
+@pytest.mark.parametrize("layout,ne,kw", [
+    pytest.param("tiles", 4, kw, id=name) for name, kw in OPTIONS] + [
+    pytest.param("ragged", 5, kw, id=f"{name}-ragged")
+    for name, kw in OPTIONS])
+def test_sharded_isl_options_bitwise(layout, ne, kw):
+    model, rho, q = _isl(ne, **kw)
+    sh = _sharded(model, layout, 8)
+    assert (sh.pad > 0) == (layout == "ragged")
     assert _same(sh.step(rho, q, 0.0, DT), model.step(rho, q, 0.0, DT))
 
 
